@@ -13,10 +13,9 @@ import os
 import sys
 import time
 
-from kmldpc_tpu.config import load_config
-from kmldpc_tpu.utils.logging import SimLogger
-
+from .config import load_config
 from .sim.montecarlo import Simulator
+from .utils.logging import SimLogger
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -90,6 +90,8 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C signatures."""
     lib = ctypes.CDLL(str(build()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.kmldpc_kmeans.argtypes = [p, p, p, p, i, i, p, p, i, i, i, i, p]
+    lib.kmldpc_kmeans.argtypes = [p, p, p, p, i, i, p, p, i, i, i, i, i, p, p]
     lib.kmldpc_kmeans.restype = ctypes.c_int
+    lib.kmldpc_kmeans_rows_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.kmldpc_kmeans_rows_per_sm.restype = ctypes.c_int
     return lib

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from kmldpc_tpu.code.ldpc import LDPCCode
+from ..code.ldpc import LDPCCode
 
 # Guard for phi(0) = inf.  Must stay >= ~1e-6: below that exp(-x) rounds to
 # exactly 1.0 in f32 and log1p(-exp(-x)) returns -inf.

@@ -22,8 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from kmldpc_tpu import constants
-
+from .. import constants
 from .bp import PHI_ARG_MIN, DecodeResult, DecoderTables, phi
 
 

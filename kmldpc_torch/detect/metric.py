@@ -17,7 +17,7 @@ from typing import Callable
 
 import torch
 
-from kmldpc_tpu.code.ldpc import LDPCCode
+from ..code.ldpc import LDPCCode
 
 from ..decoder.bp import DecoderTables, count_failed_checks
 from ..ops.modem import ModemTables, make_soft_demapper

@@ -13,7 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from kmldpc_tpu.code.ldpc import LDPCCode
+from ..code.ldpc import LDPCCode
 
 
 def encoder_table(code: LDPCCode, device: torch.device | str = "cpu") -> torch.Tensor:

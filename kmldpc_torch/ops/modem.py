@@ -20,8 +20,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from kmldpc_tpu import constants
-from kmldpc_tpu.io.constellation import Constellation
+from .. import constants
+from ..io.constellation import Constellation
 
 
 @dataclasses.dataclass(frozen=True)

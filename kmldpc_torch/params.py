@@ -7,8 +7,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from kmldpc_tpu.code.ldpc import LDPCCode
-
+from .code.ldpc import LDPCCode
 from .decoder.bp import DecoderTables
 from .ops.encode import encoder_table
 

@@ -23,14 +23,13 @@ from typing import Callable, NamedTuple
 import torch
 from torch.profiler import record_function
 
-from kmldpc_tpu.code.ldpc import LDPCCode
-from kmldpc_tpu.config import Config
-from kmldpc_tpu.io.constellation import Constellation
-
+from ..code.ldpc import LDPCCode
+from ..config import Config
 from ..decoder.bp_em import flooding_decode_two_phase
 from ..detect.kmeans import make_blind_estimator
 from ..detect.kmeans_cuda import make_blind_estimator_cuda
 from ..detect.metric import make_ambiguity_selector
+from ..io.constellation import Constellation
 from ..ops.channel import fading_awgn_channel
 from ..ops.encode import make_encoder
 from ..ops.modem import ModemTables, make_mapper, make_soft_demapper

@@ -17,12 +17,11 @@ import time
 
 import torch
 
-from kmldpc_tpu.code.ldpc import load_code
-from kmldpc_tpu.config import Config
-from kmldpc_tpu.io.constellation import parse_constellation
-from kmldpc_tpu.utils.logging import SimLogger
-
+from ..code.ldpc import load_code
+from ..config import Config
 from ..device import resolve_device
+from ..io.constellation import parse_constellation
+from ..utils.logging import SimLogger
 from .chain import ChainSpec, ChunkResult, make_chunk_runner, unported
 
 

@@ -6,14 +6,14 @@ import numpy as np
 import pytest
 import torch
 
-from kmldpc_tpu.code import load_code
-from kmldpc_tpu.io import parse_constellation
 from kmldpc_tpu.ops import ModemTables as JaxModemTables
 from kmldpc_tpu.ops import fading_awgn_channel as jax_channel
 from kmldpc_tpu.ops import make_encoder as jax_make_encoder
 from kmldpc_tpu.ops import make_mapper as jax_make_mapper
 from kmldpc_tpu.ops import random_bits as jax_random_bits
 from kmldpc_tpu.sim import chain as jchain
+from kmldpc_torch.code import load_code
+from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.params import from_jax_params
 from kmldpc_torch.sim.chain import ChainSpec, build_backend_fn, make_chunk_runner
 
@@ -23,7 +23,12 @@ VAR_15DB = np.float32(10 ** -1.5)
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    # one thread per worker process, restored after the test: other test
+    # files share the worker
+    n = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _specs(assets, table, known_h):

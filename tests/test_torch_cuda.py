@@ -1,5 +1,5 @@
-"""kmldpc_torch on the card: K1 against its plain version, the slice on
-CUDA against the slice on the CPU.
+"""kmldpc_torch on the card: K1 against its plain version, its early exit
+against its fixed loop, the slice on CUDA against the slice on the CPU.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is False.
 This file imports no jax, so it also runs on a machine without it:
@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from kmldpc_tpu.code import load_code
-from kmldpc_tpu.io import parse_constellation
+from kmldpc_torch.code import load_code
+from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.detect import kmeans_cuda
 from kmldpc_torch.detect.kmeans import blind_estimate, expand_candidates
 from kmldpc_torch.ops import ModemTables, make_generator
@@ -22,6 +22,9 @@ from kmldpc_torch.sim.chain import ChainSpec, build_backend_fn, build_frontend_f
 TABLES = [  # (table, symbols per PEG2304 codeword)
     ("2bits_QPSK.txt", 1152), ("4bit_16QAM_Gray.txt", 576), ("6bits_64QAM_Gray.txt", 384),
 ]
+# rows K1 keeps in shared memory (PEG8064 codewords) and a ragged short row
+OTHER_ROWS = [(f, n) for f, n8064 in [("2bits_QPSK.txt", 4032), ("4bit_16QAM_Gray.txt", 2016),
+                                      ("6bits_64QAM_Gray.txt", 1344)] for n in (n8064, 100)]
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py's tolerance
 
 pytestmark = pytest.mark.cuda
@@ -47,20 +50,62 @@ def _rows(const, b, nsym, seed):
 @pytest.mark.parametrize("b", [1024, 100, 12, 7])
 @pytest.mark.parametrize("fname,nsym", TABLES)
 def test_k1_matches_plain(assets, cuda, fname, nsym, b, anchor):
-    """K1 equals its plain version, writes every row, and is deterministic."""
+    """K1 equals its plain version, writes every row, is deterministic, and
+    its early exit gives the fixed loop's bits."""
+    _check_k1(assets, cuda, fname, nsym, b, anchor)
+
+
+@pytest.mark.parametrize("fname,nsym", OTHER_ROWS)
+def test_k1_long_and_ragged_rows(assets, cuda, fname, nsym):
+    for anchor in ("max", "first"):
+        _check_k1(assets, cuda, fname, nsym, 64, anchor)
+
+
+def _check_k1(assets, cuda, fname, nsym, b, anchor):
     const = parse_constellation(str(assets / fname))
     tables = ModemTables.from_constellation(const, cuda)
     yr, yi = (torch.from_numpy(a).to(cuda) for a in _rows(const, b, nsym, b))
     before = kmeans_cuda.kmeans_estimate.launches
     k1 = kmeans_cuda.kmeans_estimate(yr, yi, tables, 20, anchor)
     k1b = kmeans_cuda.kmeans_estimate(yr, yi, tables, 20, anchor)
+    early = kmeans_cuda.kmeans_estimate(yr, yi, tables, 20, anchor, early_exit=True)
     plain = expand_candidates(*blind_estimate(yr, yi, tables, 20, anchor))
     torch.cuda.synchronize()
-    assert kmeans_cuda.kmeans_estimate.launches == before + 2
-    for a, a2, p in zip(k1, k1b, plain):
+    assert kmeans_cuda.kmeans_estimate.launches == before + 3
+    for a, a2, e, p in zip(k1, k1b, early, plain):
         assert a.shape == (b, 4) and bool(torch.isfinite(a).all())
         assert torch.equal(a, a2)
+        assert torch.equal(a, e)
         torch.testing.assert_close(a, p, rtol=RTOL, atol=ATOL)
+
+
+def test_k1_rounds_and_no_device_to_host_copy(assets, cuda):
+    """A launch through the built estimator never synchronises (so it copies
+    nothing to the host); the fixed loop runs every iteration, the early
+    exit at most as many."""
+    const = parse_constellation(str(assets / "2bits_QPSK.txt"))
+    tables = ModemTables.from_constellation(const, cuda)
+    yr, yi = (torch.from_numpy(a).to(cuda) for a in _rows(const, 256, 1152, 3))
+    estimate = kmeans_cuda.make_blind_estimator_cuda(tables)
+    estimate(yr, yi)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h4 = estimate(yr, yi)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pts_r = tables.points_re.cpu().numpy()
+    pts_i = tables.points_im.cpu().numpy()
+    k_init = int(np.argmax(pts_r * pts_r + pts_i * pts_i))
+    rounds = {}
+    for early in (False, True):
+        rounds[early] = torch.zeros(256, dtype=torch.int32, device=cuda)
+        got = kmeans_cuda.launch_k1(yr, yi, pts_r, pts_i, 20, k_init, False, early,
+                                    rounds[early])
+        for a, b in zip(got, h4):
+            assert torch.equal(a, b)
+    assert bool((rounds[False] == 20).all())
+    assert bool((rounds[True] >= 1).all()) and bool((rounds[True] <= 20).all())
 
 
 @pytest.mark.parametrize("table,known_h", [("2bits_QPSK.txt", False),

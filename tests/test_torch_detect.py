@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 import torch
 
-from kmldpc_tpu.code import load_code
 from kmldpc_tpu.decoder.bp import DecoderTables as JaxDecoderTables
 from kmldpc_tpu.detect.kmeans import make_blind_estimator as jax_make_blind_estimator
 from kmldpc_tpu.detect.metric import make_ambiguity_selector as jax_make_selector
-from kmldpc_tpu.io import parse_constellation
 from kmldpc_tpu.ops.modem import ModemTables as JaxModemTables
+from kmldpc_torch.code import load_code
+from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.decoder import DecoderTables
 from kmldpc_torch.detect import kmeans_cuda
 from kmldpc_torch.detect.kmeans import blind_estimate, expand_candidates, make_blind_estimator
@@ -27,7 +27,12 @@ RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py's tolerance
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    # one thread per worker process, restored after the test: other test
+    # files share the worker
+    n = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -62,9 +67,11 @@ def test_kmeans_matches_jax(assets, fname, nsym, b, anchor):
             np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)
 
 
-def test_kmeans_matches_pallas_interpret(assets):
+@pytest.mark.parametrize("early_exit", [False, True])
+def test_kmeans_matches_pallas_interpret(assets, early_exit):
     """One case against the Pallas kernel itself, in interpret mode as
-    tests/test_pallas.py runs it."""
+    tests/test_pallas.py runs it; its early exit against the port's
+    estimator built with early_exit (on the CPU, the plain fixed loop)."""
     from jax.experimental.pallas import tpu as pltpu
 
     from kmldpc_tpu.detect.kmeans_pallas import make_blind_estimator_pallas
@@ -73,9 +80,11 @@ def test_kmeans_matches_pallas_interpret(assets):
     rng = np.random.default_rng(11)
     yr, yi = (rng.normal(size=(12, 288)).astype(np.float32) for _ in range(2))
     with pltpu.force_tpu_interpret_mode():
-        ref = make_blind_estimator_pallas(JaxModemTables.from_constellation(const))(
+        ref = make_blind_estimator_pallas(JaxModemTables.from_constellation(const),
+                                          early_exit=early_exit)(
             jnp.asarray(yr), jnp.asarray(yi))
-    ours = make_blind_estimator(ModemTables.from_constellation(const))(
+    ours = kmeans_cuda.make_blind_estimator_cuda(ModemTables.from_constellation(const),
+                                                 early_exit=early_exit)(
         torch.from_numpy(yr), torch.from_numpy(yi))
     for a, r in zip(ours, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL)

@@ -6,13 +6,13 @@ import numpy as np
 import pytest
 import torch
 
-from kmldpc_tpu.code import load_code
-from kmldpc_tpu.io import parse_constellation
 from kmldpc_tpu.ops import ModemTables as JaxModemTables
 from kmldpc_tpu.ops import make_encoder as jax_make_encoder
 from kmldpc_tpu.ops import make_mapper as jax_make_mapper
 from kmldpc_tpu.ops import make_soft_demapper as jax_make_soft_demapper
 from kmldpc_tpu.ops.encode import encoder_table as jax_encoder_table
+from kmldpc_torch.code import load_code
+from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.ops import (
     ModemTables,
     chunk_seed,
@@ -32,7 +32,12 @@ TABLES = ["2bits_QPSK.txt", "4bit_16QAM_Gray.txt", "6bits_64QAM_Gray.txt"]
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    # one thread per worker process, restored after the test: other test
+    # files share the worker
+    n = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -9,8 +9,8 @@ import sys
 import pytest
 import torch
 
-from kmldpc_tpu.config import load_config
-from kmldpc_tpu.utils.logging import SimLogger
+from kmldpc_torch.config import load_config
+from kmldpc_torch.utils import SimLogger
 from kmldpc_torch import resolve_device
 from kmldpc_torch.sim import Simulator
 
@@ -19,7 +19,12 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    # one thread per worker process, restored after the test: other test
+    # files share the worker
+    n = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cfg(assets, **over):
@@ -115,14 +120,15 @@ def test_cli_smoke_cpu(assets, tmp_path):
 
 
 def test_package_never_imports_jax():
-    """Importing every kmldpc_torch module leaves jax out of sys.modules."""
+    """Importing every kmldpc_torch module leaves jax and kmldpc_tpu out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import kmldpc_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(kmldpc_torch.__path__, 'kmldpc_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 15, mods\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'kmldpc_tpu'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

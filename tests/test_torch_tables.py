@@ -5,14 +5,14 @@ import numpy as np
 import pytest
 import torch
 
-from kmldpc_tpu.code import load_code
 from kmldpc_tpu.decoder.bp import DecoderTables as JaxDecoderTables
-from kmldpc_tpu.io import parse_constellation
 from kmldpc_tpu.ops.encode import encoder_table as jax_encoder_table
 from kmldpc_tpu.ops.modem import ModemTables as JaxModemTables
 from kmldpc_tpu.sim.chain import ChainSpec as JaxChainSpec
 from kmldpc_tpu.sim.chain import make_chain_params as jax_make_chain_params
+from kmldpc_torch.code import load_code
 from kmldpc_torch.decoder import DecoderTables
+from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.ops import ModemTables, encoder_table
 from kmldpc_torch.params import from_jax_params, make_chain_params
 
@@ -27,7 +27,12 @@ DEC_INTS = ["num_col", "num_row", "code_dim", "info_start", "dc", "dr"]
 
 @pytest.fixture(autouse=True)
 def _one_thread():
+    # one thread per worker process, restored after the test: other test
+    # files share the worker
+    n = torch.get_num_threads()
     torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _assert_dec_equal(ours: DecoderTables, ref) -> None:
