@@ -8,9 +8,11 @@ Phases (any failure raises and exits non-zero):
 2. build: compile kernel K1 (csrc/kmeans.cu) from the checkout's sources;
 3. K1 against its plain PyTorch version on every row shape the later
    phases give it: QPSK / 16QAM Gray / 64QAM Gray at their PEG2304 symbol
-   counts (15 dB channel outputs) and 64QAM at PEG8064's (sweep 5's front
-   end at 17.5 dB), each also on plain normal draws, B in {1024, 100, 12,
-   7}, both anchors (rtol 1e-5, atol 1e-6); two launches must agree
+   counts (15 dB channel outputs), 64QAM at PEG8064's (sweep 5's front
+   end at 17.5 dB) and 16QAM at the 5G BG2 K=960 code's 480 symbols
+   (sweep 4's front end at 14 dB), each also on plain normal draws, B in
+   {1024, 100, 12, 7}, both anchors (rtol 1e-5, atol 1e-6); two launches
+   must agree
    bitwise, and so must the early exit with the fixed loop.  At B = 1024,
    CUDA events time the plain version, the wrapper, and raw launches of
    pre-built arguments (the kernel alone) with the fixed loop and with
@@ -22,9 +24,13 @@ Phases (any failure raises and exits non-zero):
    count reset just before and read just after, then the same point three
    more times, warm, for its blocks/s;
 5. parity: the full 7-point sweep of that config, blind and known-h, then
-   the blind 16QAM sweep 2 and the blind PEG8064 64QAM sweep 5 of
-   benchmarks/parity/configs (K1's M = 16 and M = 64 kernels), each
-   z-tested by tools/parity.py against its C++ reference log (|z| < 4).
+   sweeps 2 (blind 16QAM), 3 (known-h 5G 16QAM), 4 (blind 5G 16QAM, soft
+   metric), 5 (blind PEG8064 64QAM), 8 (sweep 5 with flooding min-sum),
+   9 (known-h QPSK, flooding min-sum) and 10 (blind QPSK, flooding
+   min-sum, pruned candidates) of benchmarks/parity/configs, each z-tested
+   by tools/parity.py against its C++ reference log (|z| < 4), with K1's
+   launches counted per sweep: some on every blind sweep, none on a
+   known-h one.
 
 The line before the last is one JSON object describing the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -55,6 +61,17 @@ K1_CASES = (  # (code, table, symbols a codeword, SNR of the channel rows in dB)
     ("PEG2304regular0.5.txt", "4bit_16QAM_Gray.txt", 576, 15.0),
     ("PEG2304regular0.5.txt", "6bits_64QAM_Gray.txt", 384, 15.0),
     ("PEG8064regular0.5.txt", "6bits_64QAM_Gray.txt", 1344, 17.5),  # sweep 5's first point
+    ("5GLDPCBG2a3_R12_K960.txt", "4bit_16QAM_Gray.txt", 480, 14.0),  # sweep 4's first point
+)
+# sweeps of benchmarks/parity/configs and the C++ reference log each is held to
+SWEEPS = (
+    ("sweep2_blind_16qam.toml", "ref_blind_16qam.log"),
+    ("sweep3_known_5g16qam.toml", "ref_known_5g16qam.log"),
+    ("sweep4_blind_5g_soft.toml", "ref_blind_5g_soft.log"),
+    ("sweep5_blind_8064_64qam.toml", "ref_blind_8064_64qam_r5.log"),
+    ("sweep8_blind_8064_fminsum.toml", "ref_blind_8064_64qam_r5.log"),
+    ("sweep9_known_qpsk_fminsum.toml", "ref_known_qpsk_r5.log"),
+    ("sweep10_blind_qpsk_fminsum_prune.toml", "ref_blind_qpsk.log"),
 )
 K1_BATCHES = (1024, 100, 12, 7)
 # the kernel alone at 33 blocks (one warp a scheduler on 33 SMs), at the
@@ -153,7 +170,7 @@ def phase_k1(dev: torch.device, ops_rate: float) -> dict:
             code = load_code(os.path.join(HERE, "assets", code_file))
             codes[code_file] = code, make_chain_params(code, dev)
         code, params = codes[code_file]
-        label = f"{code_file.split('regular')[0]} {fname}"
+        label = f"{code_file.split('regular')[0].split('LDPC')[0]} {fname}"
         var = torch.tensor(10.0 ** (-0.1 * snr), dtype=torch.float32, device=dev)
         const = parse_constellation(os.path.join(HERE, "assets", fname))
         tables = ModemTables.from_constellation(const, dev)
@@ -327,18 +344,14 @@ def phase_parity(dev: torch.device) -> dict:
     from tools.parity import compare, parse_reference_log
 
     cfg = load_config(CONFIG)
-    sweeps = os.path.join(PARITY_DIR, "configs")
-    runs = (
+    runs = [
         ("blind QPSK", cfg, "ref_blind_qpsk.log"),
         ("known-h QPSK", dataclasses.replace(
             cfg, decoder=dataclasses.replace(cfg.decoder, true_h_arg=True)),
          "ref_known_qpsk_r5.log"),
-        ("blind 16QAM", load_config(os.path.join(sweeps, "sweep2_blind_16qam.toml")),
-         "ref_blind_16qam.log"),
-        ("blind PEG8064 64QAM", load_config(os.path.join(sweeps, "sweep5_blind_8064_64qam.toml")),
-         "ref_blind_8064_64qam_r5.log"),
-    )
-    launches = {}
+    ] + [(toml.removesuffix(".toml"), load_config(os.path.join(PARITY_DIR, "configs", toml)), ref)
+         for toml, ref in SWEEPS]
+    launches, failed = {}, []
     for name, c, ref_name in runs:
         quiet = SimLogger(log_dir=None, stdout=False)
         sim = Simulator(c, quiet, device=dev)
@@ -350,9 +363,9 @@ def phase_parity(dev: torch.device) -> dict:
         ref = parse_reference_log(os.path.join(PARITY_DIR, ref_name))
         rows = compare(ref, [dataclasses.asdict(r) for r in results], sim.code.code_dim)
         if len(rows) != len(results):
-            raise AssertionError(f"{name}: {len(rows)} of {len(results)} points compared")
+            failed.append(f"{name}: {len(rows)} of {len(results)} points compared")
         if c.decoder.true_h_arg == (launches[name] > 0):
-            raise AssertionError(f"{name}: K1 launched {launches[name]} times")
+            failed.append(f"{name}: K1 launched {launches[name]} times")
         worst = 0.0
         for r, res in zip(rows, results):
             worst = max(worst, abs(r["z_fer"]), abs(r["z_ber"]))
@@ -363,7 +376,9 @@ def phase_parity(dev: torch.device) -> dict:
         log(f"parity {name} vs {ref_name}: worst |z| = {worst:.3f} over "
             f"{len(rows)} points, sweep {wall:.3f} s, K1 launches {launches[name]}")
         if not worst < 4.0:
-            raise AssertionError(f"parity {name}: worst |z| {worst:.3f} >= 4")
+            failed.append(f"parity {name}: worst |z| {worst:.3f} >= 4")
+    if failed:
+        raise AssertionError("; ".join(failed))
     return launches
 
 

@@ -1,23 +1,25 @@
 """Decoder tables, Gallager's phi and parity counting (port of
 ``kmldpc_tpu/decoder/bp.py``).
 
-The tables are the slot-major ones the flooding core uses: c2v messages
-live as ``[dr, num_row, B]`` (batch-minor), so merging the two leading
-axes is free and the only data movement per iteration is two row gathers
-(``perm_sm_c2r`` and ``row_col_sm``).  They are built in NumPy from the
-host-side ``LDPCCode``, in the same way as the JAX package builds them.
+Two message layouts, both built in NumPy from the host-side ``LDPCCode``
+exactly as the JAX package builds them:
 
-Classic codes only.  Regular codes (PEG2304, PEG8064) need no masks;
-an irregular classic code runs on the same padded layout with its pad
-slots masked, as in the JAX padded core.  The degree-class layout (the
-JAX package's fast path for irregular codes) and 5G puncturing are not
-ported yet.
+* slot-major (regular codes: PEG2304, PEG8064): c2v messages live as
+  ``[dr, num_row, B]`` (batch-minor), so merging the two leading axes is
+  free and the only data movement per iteration is two row gathers
+  (``perm_sm_c2r`` and ``row_col_sm``);
+* degree-class (irregular codes: the 5G BG2 code): columns and rows sorted
+  by degree, each degree class owning a contiguous span of one flat
+  ``[E, B]`` message array, so no slot is padding (``perm_cf_c2r`` and
+  ``row_col_cf``).
+
+5G codes puncture their first ``punct = 2Z`` columns: they carry LLR 0.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import numpy as np
 import torch
@@ -50,104 +52,162 @@ class DecodeResult(NamedTuple):
     soft_syndrome: torch.Tensor  # [B, num_row] f32
 
 
+_INDEX_FIELDS = ("perm_sm_c2r", "row_edge_col", "col_sort", "col_unsort", "row_unsort",
+                 "perm_cf_c2r", "row_col_cf")
+
+
 @dataclasses.dataclass(frozen=True)
 class DecoderTables:
-    """Slot-major graph tables of one classic code on one device."""
+    """Graph tables of one code on one device."""
 
     num_col: int
     num_row: int
+    num_edges: int
     code_dim: int
-    info_start: int  # first info column of [parity | info]
-    dc: int  # max column degree (slots per column)
-    dr: int  # max row degree (slots per row)
-    regular: bool  # every slot is a real edge: the masks are skipped
-    # perm_sm_c2r[q]: slot-major row-flat position of the edge at slot-major
-    # column-flat position q (the c2v -> column-view gather)
-    perm_sm_c2r: torch.Tensor  # [dc*num_col] int64
-    col_mask_sm: torch.Tensor  # [dc, num_col] f32 — 1 where a real edge
-    row_mask_sm: torch.Tensor  # [dr, num_row] f32
-    row_edge_col: torch.Tensor  # [num_row, dr] int64 — column of each row slot, num_col = pad
-    row_col_sm: torch.Tensor  # [dr*num_row] int64 — row_edge_col.T flattened
+    punct: int  # leading punctured columns: 2Z for 5G, 0 for classic codes
+    is_5g: bool
+    info_start: int  # first info column: 0 for 5G [info | parity], code_chk for [parity | info]
+    dc: int  # column degree of a regular code; 0 if irregular
+    dr: int  # row degree of a regular code; 0 if irregular
+    col_classes: tuple  # ((degree, columns), ...) ascending by degree
+    row_classes: tuple  # ((degree, rows), ...)
+    # slot-major layout.  perm_sm_c2r[q]: slot-major row-flat position of the
+    # edge at slot-major column-flat position q (pads point at 0)
+    perm_sm_c2r: torch.Tensor  # [dc_max*num_col] int64
+    row_edge_col: torch.Tensor  # [num_row, dr_max] int64 — column of each row slot, num_col = pad
+    row_col_sm: torch.Tensor  # [dr_max*num_row] int64 — row_edge_col.T flattened
+    # degree-class layout
+    col_sort: torch.Tensor  # [num_col] — sorted position -> column
+    col_unsort: torch.Tensor  # [num_col] — column -> sorted position
+    row_unsort: torch.Tensor  # [num_row] — row -> sorted position
+    perm_cf_c2r: torch.Tensor  # [E] — class column-flat position -> row-flat position
+    row_col_cf: torch.Tensor  # [E] — class row-flat position -> sorted column
+
+    # the host values a DecoderTables is built from, named as the fields of
+    # the JAX package's DecoderTables
+    HOST_FIELDS: ClassVar[tuple[str, ...]] = (
+        "num_col", "num_row", "num_edges", "code_dim", "punct", "is_5g", "info_start",
+        "dc", "dr", "col_classes", "row_classes", *_INDEX_FIELDS,
+    )
+
+    @property
+    def is_regular(self) -> bool:
+        return self.dc > 0
 
     @staticmethod
     def from_code(code: LDPCCode, device: torch.device | str = "cpu") -> "DecoderTables":
-        if code.is_5g:
-            raise NotImplementedError(
-                f"code {code.name!r} is a 5G code; puncturing and the degree-class "
-                "decoder core are not ported yet "
-                "(ROADMAP.md Queue 1, 'degree-class core and 5G')"
-            )
+        regular = bool(code.col_mask.all() and code.row_mask.all())
         return DecoderTables.from_arrays(
+            device=device,
             num_col=code.num_col,
             num_row=code.num_row,
+            num_edges=code.num_edges,
             code_dim=code.code_dim,
-            info_start=code.code_chk,
-            **slot_major_tables(code),
-            device=device,
+            punct=code.punct,
+            is_5g=code.is_5g,
+            info_start=0 if code.is_5g else code.code_chk,
+            dc=code.dc_max if regular else 0,
+            dr=code.dr_max if regular else 0,
+            perm_sm_c2r=slot_major_perm(code),
+            row_edge_col=code.row_edge_col,
+            **class_tables(code),
         )
 
     @staticmethod
-    def from_arrays(
-        *, num_col, num_row, code_dim, info_start,
-        perm_sm_c2r, col_mask_sm, row_mask_sm, row_edge_col,
-        device: torch.device | str = "cpu",
-    ) -> "DecoderTables":
-        """Build from host arrays (NumPy or anything ``np.asarray`` takes)."""
-        def idx(a):
-            return torch.tensor(np.asarray(a).astype(np.int64), device=device)
-
-        def f32(a):
-            return torch.tensor(np.asarray(a).astype(np.float32), device=device)
-
-        col_mask_sm = np.asarray(col_mask_sm)
-        row_mask_sm = np.asarray(row_mask_sm)
-        row_edge_col = np.asarray(row_edge_col)
+    def from_arrays(device: torch.device | str = "cpu", **host) -> "DecoderTables":
+        """Build from host values named as the fields of the JAX package's
+        ``DecoderTables``: Python scalars and class tuples, and index arrays
+        as anything ``np.asarray`` takes."""
+        idx = {
+            f: torch.tensor(np.asarray(host[f]).astype(np.int64), device=device)
+            for f in _INDEX_FIELDS
+        }
+        classes = {
+            f: tuple((int(d), int(n)) for d, n in host[f]) for f in ("col_classes", "row_classes")
+        }
         return DecoderTables(
-            num_col=int(num_col),
-            num_row=int(num_row),
-            code_dim=int(code_dim),
-            info_start=int(info_start),
-            dc=int(col_mask_sm.shape[0]),
-            dr=int(row_mask_sm.shape[0]),
-            regular=bool(col_mask_sm.all() and row_mask_sm.all()),
-            perm_sm_c2r=idx(perm_sm_c2r),
-            col_mask_sm=f32(col_mask_sm),
-            row_mask_sm=f32(row_mask_sm),
-            row_edge_col=idx(row_edge_col),
-            row_col_sm=idx(row_edge_col.T.reshape(-1)),
+            num_col=int(host["num_col"]),
+            num_row=int(host["num_row"]),
+            num_edges=int(host["num_edges"]),
+            code_dim=int(host["code_dim"]),
+            punct=int(host["punct"]),
+            is_5g=bool(host["is_5g"]),
+            info_start=int(host["info_start"]),
+            dc=int(host["dc"]),
+            dr=int(host["dr"]),
+            **classes,
+            **idx,
+            row_col_sm=idx["row_edge_col"].T.reshape(-1).contiguous(),
         )
 
 
-def slot_major_tables(code: LDPCCode) -> dict[str, np.ndarray]:
-    """The slot-major permutations and masks of ``code`` (NumPy).
-
-    Same construction as ``kmldpc_tpu.decoder.bp.DecoderTables.from_code``:
-    edge e (column-sorted) sits at slot = its rank within its column, and
-    at (row, slot) from ``edge_rowslot`` on the row side.  Pad positions
-    point at index 0 and are neutralised by the masks.
-    """
+def slot_major_perm(code: LDPCCode) -> np.ndarray:
+    """``perm_sm_c2r`` of ``code`` (NumPy), as
+    ``kmldpc_tpu.decoder.bp.DecoderTables.from_code`` builds it: edge e
+    (column-sorted) sits at slot = its rank within its column, and at
+    (row, slot) from ``edge_rowslot`` on the row side.  Pad positions
+    point at index 0."""
     dcm, drm = code.dc_max, code.dr_max
     col_of = code.edge_col.astype(np.int64)
-    col_starts = np.cumsum(np.bincount(col_of, minlength=code.num_col)) - np.bincount(
-        col_of, minlength=code.num_col
-    )
-    slot_c = np.arange(code.num_edges, dtype=np.int64) - col_starts[col_of]
+    cd = np.bincount(col_of, minlength=code.num_col)
+    slot_c = np.arange(code.num_edges, dtype=np.int64) - (np.cumsum(cd) - cd)[col_of]
     col_sm = slot_c * code.num_col + col_of
     r = (code.edge_rowslot // drm).astype(np.int64)
     s = (code.edge_rowslot % drm).astype(np.int64)
-    row_sm = s * code.num_row + r
     perm_sm_c2r = np.zeros(dcm * code.num_col, dtype=np.int32)
-    perm_sm_c2r[col_sm] = row_sm
-    col_mask_sm = np.zeros(dcm * code.num_col, dtype=np.float32)
-    col_mask_sm[col_sm] = 1.0
-    row_mask_sm = np.zeros(drm * code.num_row, dtype=np.float32)
-    row_mask_sm[row_sm] = 1.0
-    return dict(
-        perm_sm_c2r=perm_sm_c2r,
-        col_mask_sm=col_mask_sm.reshape(dcm, code.num_col),
-        row_mask_sm=row_mask_sm.reshape(drm, code.num_row),
-        row_edge_col=code.row_edge_col,
-    )
+    perm_sm_c2r[col_sm] = s * code.num_row + r
+    return perm_sm_c2r
+
+
+def _class_layout(degrees: np.ndarray):
+    """Sort nodes ascending by degree and give each node's edge slots a
+    contiguous flat span per degree class (``kmldpc_tpu``'s ``_class_layout``).
+
+    Returns (classes, sort, unsort, slot_base, stride): ``classes`` is
+    ``((degree, count), ...)``, ``sort[p]`` the node at sorted position p,
+    ``unsort`` its inverse, and slot s of a node sits at flat index
+    ``slot_base[node] + s * stride[node]``.
+    """
+    sort = np.argsort(degrees, kind="stable").astype(np.int32)
+    unsort = np.empty_like(sort)
+    unsort[sort] = np.arange(sort.shape[0], dtype=np.int32)
+    degs, counts = np.unique(degrees, return_counts=True)
+    classes = tuple((int(d), int(n)) for d, n in zip(degs, counts))
+    base = np.cumsum(counts) - counts  # first sorted node of each class
+    off = np.cumsum(degs * counts) - degs * counts  # first flat index of each class
+    cls_of = np.searchsorted(degs, degrees)
+    slot_base = off[cls_of] - base[cls_of] + unsort.astype(np.int64)
+    stride = counts.astype(np.int64)[cls_of]
+    return classes, sort, unsort, slot_base, stride
+
+
+def class_tables(code: LDPCCode) -> dict:
+    """The degree-class tables of ``code`` (NumPy and tuples), as
+    ``kmldpc_tpu``'s ``_build_class_tables`` builds them."""
+    cd = np.bincount(code.edge_col, minlength=code.num_col)
+    rd = np.bincount(code.edge_row, minlength=code.num_row)
+    ccls, csort, cunsort, cslot_base, cstride = _class_layout(cd)
+    rcls, _, runsort, rslot_base, rstride = _class_layout(rd)
+    # edges are column-sorted, so the slot (rank within column) is positional
+    slot_c = np.arange(code.num_edges, dtype=np.int64) - (np.cumsum(cd) - cd)[code.edge_col]
+    colflat = cslot_base[code.edge_col] + slot_c * cstride[code.edge_col]
+    slot_r = (code.edge_rowslot % code.dr_max).astype(np.int64)
+    rowflat = rslot_base[code.edge_row] + slot_r * rstride[code.edge_row]
+    perm_cf_c2r = np.empty(code.num_edges, dtype=np.int32)
+    perm_cf_c2r[colflat] = rowflat
+    row_col_cf = np.empty(code.num_edges, dtype=np.int32)
+    row_col_cf[rowflat] = cunsort[code.edge_col]
+    return dict(col_classes=ccls, row_classes=rcls, col_sort=csort, col_unsort=cunsort,
+                row_unsort=runsort, perm_cf_c2r=perm_cf_c2r, row_col_cf=row_col_cf)
+
+
+def channel_llr_to_columns(t: DecoderTables, chan_llr: torch.Tensor) -> torch.Tensor:
+    """[B, tx_len] transmitted-position LLRs -> [B, num_col] graph columns:
+    the punctured leading columns get LLR 0."""
+    if t.punct == 0:
+        return chan_llr
+    zeros = torch.zeros((chan_llr.shape[0], t.punct), dtype=chan_llr.dtype, device=chan_llr.device)
+    return torch.cat([zeros, chan_llr], dim=1)
 
 
 def count_failed_checks(t: DecoderTables, bits: torch.Tensor) -> torch.Tensor:

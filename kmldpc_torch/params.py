@@ -29,21 +29,14 @@ def from_jax_params(np_params, device: torch.device | str = "cpu") -> ChainParam
 
     ``np_params`` is that pytree with its leaves turned into NumPy arrays
     (``jax.tree.map(np.asarray, params)``): an object with ``gen_t`` and a
-    ``dec`` carrying the slot-major fields of ``DecoderTables``.  Lets a
-    test run both packages on identical parameters.
+    ``dec`` carrying the fields of the JAX ``DecoderTables`` (slot-major,
+    degree-class and 5G).  Lets a test run both packages on identical
+    parameters.
     """
     d = np_params.dec
     return ChainParams(
         gen_t=torch.tensor(np.asarray(np_params.gen_t, dtype=np.float32), device=device),
         dec=DecoderTables.from_arrays(
-            num_col=d.num_col,
-            num_row=d.num_row,
-            code_dim=d.code_dim,
-            info_start=d.info_start,
-            perm_sm_c2r=d.perm_sm_c2r,
-            col_mask_sm=d.col_mask_sm,
-            row_mask_sm=d.row_mask_sm,
-            row_edge_col=d.row_edge_col,
-            device=device,
+            device=device, **{f: getattr(d, f) for f in DecoderTables.HOST_FIELDS}
         ),
     )

@@ -1,7 +1,7 @@
 """The per-chunk simulation chain for B codewords (port of
 ``kmldpc_tpu/sim/chain.py``):
 
-    bits -> encode -> map -> channel -> [K1 k-means + hard ambiguity metric]
+    bits -> encode -> map -> channel -> [K1 k-means + ambiguity metric]
          -> soft demap -> exact two-phase flooding decode -> error counters
 
 It is split into a random front end (bits to channel outputs, drawn from one
@@ -25,10 +25,10 @@ from torch.profiler import record_function
 
 from ..code.ldpc import LDPCCode
 from ..config import Config
-from ..decoder.bp_em import flooding_decode_two_phase
+from ..decoder.bp_em import flooding_decode_em, flooding_decode_two_phase
 from ..detect.kmeans import make_blind_estimator
 from ..detect.kmeans_cuda import make_blind_estimator_cuda
-from ..detect.metric import make_ambiguity_selector
+from ..detect.metric import complement_closed, make_ambiguity_selector
 from ..io.constellation import Constellation
 from ..ops.channel import fading_awgn_channel
 from ..ops.encode import make_encoder
@@ -78,25 +78,23 @@ class ChainSpec:
     kmeans_impl: str = "auto"
     phase1_iters: int = 3
     tile: int = 0  # 0 = batch // 8 (at least 8)
+    # final-decode check rule: "flooding" (sum-product, the reference's) or
+    # "flooding-minsum" (normalised min-sum with minsum_alpha)
+    schedule: str = "flooding"
+    minsum_alpha: float = 0.75
+    # metric decodes: "flooding" (sum-product, as the reference) or "match"
+    # (the final decode's check rule)
+    metric_schedule: str = "flooding"
+    # skip the -ĥ / -jĥ candidates where they tie +ĥ / +jĥ exactly
+    # (detect/metric.py complement_closed)
+    metric_prune: bool = False
 
     @staticmethod
     def from_config(cfg: Config, code: LDPCCode, constellation: Constellation) -> "ChainSpec":
         """Spec of ``cfg``; raises NotImplementedError for unported knobs."""
         tpu = cfg.tpu
-        if cfg.xcodec.ldpc_5g or code.is_5g:
-            raise unported("[xcodec] 5gldpc / 5G codes", "degree-class core and 5G")
-        if not (code.col_mask.all() and code.row_mask.all()):
-            raise unported(f"irregular code {code.name!r}", "degree-class core and 5G")
-        if cfg.xcodec.metric_type:
-            raise unported("[xcodec] metric_type = true", "soft metric")
-        if tpu.schedule != "flooding":
-            raise unported(f"[tpu] schedule = {tpu.schedule!r}", "min-sum family")
-        if tpu.metric_schedule != "flooding":
-            raise unported(
-                f"[tpu] metric_schedule = {tpu.metric_schedule!r}", "min-sum family"
-            )
-        if tpu.metric_prune:
-            raise unported("[tpu] metric_prune", "min-sum family")
+        if tpu.schedule == "layered-minsum":
+            raise unported(f"[tpu] schedule = {tpu.schedule!r}", "layered min-sum")
         if tpu.dtype != "float32":
             raise unported(f"[tpu] dtype = {tpu.dtype!r}", "bf16")
         if cfg.histogram.enable:
@@ -105,6 +103,10 @@ class ChainSpec:
             raise unported("[tpu] kmeans_dump_dir", "snr_fold, checkpoints, histogram, dumps")
         if tpu.debug_blocks:
             raise unported("[tpu] debug_blocks", "snr_fold, checkpoints, histogram, dumps")
+        if tpu.model_parallel > 1:
+            raise unported("[tpu] model_parallel", "multi-device")
+        if tpu.data_parallel > 1:
+            raise unported("[tpu] data_parallel > 1", "multi-device")
         return ChainSpec(
             code=code,
             constellation=constellation,
@@ -117,6 +119,10 @@ class ChainSpec:
             kmeans_impl=tpu.kmeans_impl,
             phase1_iters=tpu.phase1_iters,
             tile=tpu.tile,
+            schedule=tpu.schedule,
+            minsum_alpha=tpu.minsum_alpha,
+            metric_schedule=tpu.metric_schedule,
+            metric_prune=tpu.metric_prune,
         )
 
 
@@ -161,9 +167,28 @@ def build_backend_fn(
         estimate = make_blind_estimator(tables, spec.kmeans_iters, spec.kmeans_anchor)
     else:
         raise ValueError(f"unknown kmeans_impl {spec.kmeans_impl!r}")
+    if spec.schedule not in ("flooding", "flooding-minsum"):
+        raise ValueError(f"unknown schedule {spec.schedule!r}")
+    if spec.metric_schedule not in ("flooding", "match"):
+        raise ValueError(f"unknown metric_schedule {spec.metric_schedule!r}")
+    if spec.metric_prune and not complement_closed(code, spec.constellation):
+        raise ValueError(
+            "metric_prune requires a complement-closed constellation "
+            "and even-degree check rows (the shipped QPSK table + PEG codes); "
+            f"{spec.constellation.num_points}-point table / code "
+            f"{code.name!r} do not qualify"
+        )
+    cn_rule = "minsum" if spec.schedule == "flooding-minsum" else "sumprod"
+    mdecode = None
+    if spec.metric_schedule == "match" and cn_rule == "minsum":
+        def mdecode(t, llr, it):
+            return flooding_decode_em(t, llr, it, cn_rule, spec.minsum_alpha)
     select = None
     if not spec.known_h:
-        select = make_ambiguity_selector(code, tables, spec.metric_type, spec.metric_iter)
+        select = make_ambiguity_selector(
+            code, tables, spec.metric_type, spec.metric_iter, decode=mdecode,
+            prune_complement=spec.metric_prune,
+        )
     tile = spec.tile or max(8, batch // 8)
 
     def backend(params: ChainParams, uu, yr, yi, hr_true, hi_true, var) -> ChunkResult:
@@ -180,7 +205,7 @@ def build_backend_fn(
         with record_function("decode"):
             res = flooding_decode_two_phase(
                 params.dec, chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters,
-                tile=tile,
+                tile=tile, cn_rule=cn_rule, alpha=spec.minsum_alpha,
             )
         with record_function("counters"):
             errs = (uu != res.uu_hat).sum(dim=1, dtype=torch.int32)  # [B]

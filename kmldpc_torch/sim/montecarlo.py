@@ -72,10 +72,6 @@ class Simulator:
             raise unported("[tpu] checkpoint_path", extras)
         if tpu.profile_dir:
             raise unported("[tpu] profile_dir", extras)
-        if tpu.model_parallel > 1:
-            raise unported("[tpu] model_parallel", "multi-device")
-        if tpu.data_parallel > 1:
-            raise unported("[tpu] data_parallel > 1", "multi-device")
         self.cfg = cfg
         self.log = logger or SimLogger(log_dir=None)
         self.device = resolve_device(device)
@@ -102,7 +98,7 @@ class Simulator:
             f"[MAX_ERROR_BLK = {cfg.range.maximum_error_number},"
             f"MAX_BLK = {cfg.range.maximum_block_number}]"
         )
-        self.log.info("Using traditional LDPC.")
+        self.log.info(f"Using {'5G' if self.code.is_5g else 'traditional'} LDPC.")
         name = (
             torch.cuda.get_device_name(self.device)
             if self.device.type == "cuda" else "cpu"

@@ -1,5 +1,6 @@
 """kmldpc_torch on the card: K1 against its plain version, its early exit
-against its fixed loop, the slice on CUDA against the slice on the CPU.
+against its fixed loop, the slices (main path and parity sweeps) on CUDA
+against the same slices on the CPU.
 
 Marked ``cuda``; every test skips where torch.cuda.is_available() is False.
 This file imports no jax, so it also runs on a machine without it:
@@ -7,11 +8,14 @@ This file imports no jax, so it also runs on a machine without it:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import pathlib
+
 import numpy as np
 import pytest
 import torch
 
 from kmldpc_torch.code import load_code
+from kmldpc_torch.config import load_config
 from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.detect import kmeans_cuda
 from kmldpc_torch.detect.kmeans import blind_estimate, expand_candidates
@@ -26,6 +30,7 @@ TABLES = [  # (table, symbols per PEG2304 codeword)
 OTHER_ROWS = [(f, n) for f, n8064 in [("2bits_QPSK.txt", 4032), ("4bit_16QAM_Gray.txt", 2016),
                                       ("6bits_64QAM_Gray.txt", 1344)] for n in (n8064, 100)]
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py's tolerance
+SWEEPS = pathlib.Path(__file__).resolve().parent.parent / "benchmarks" / "parity" / "configs"
 
 pytestmark = pytest.mark.cuda
 
@@ -132,3 +137,42 @@ def test_slice_on_card_counts_like_cpu(assets, cuda, table, known_h):
     assert int(gpu.err_bit) == int(cpu.err_bit)
     assert int(gpu.err_blk) == int(cpu.err_blk)
     assert torch.equal(gpu.metrics.cpu(), cpu.metrics)
+
+
+@pytest.mark.parametrize("sweep,snr_db", [
+    ("sweep3_known_5g16qam.toml", 15.0), ("sweep4_blind_5g_soft.toml", 14.0),
+    ("sweep8_blind_8064_fminsum.toml", 17.5), ("sweep9_known_qpsk_fminsum.toml", 5.0),
+    ("sweep10_blind_qpsk_fminsum_prune.toml", 10.0),
+])
+def test_sweep_slice_on_card_counts_like_cpu(cuda, sweep, snr_db):
+    """A parity sweep's configuration at one of its points, 64 blocks: the
+    back end on the card and on the CPU, on the same channel outputs, give
+    the same block errors and winners; with min-sum (exact messages) also
+    the same bit errors.  With sum-product the bit errors of a codeword
+    that never converges may differ by rounding (ROADMAP.md Queue 3)."""
+    cfg = load_config(str(SWEEPS / sweep))
+    code = load_code(cfg.matrix_path())
+    spec = ChainSpec.from_config(cfg, code, parse_constellation(cfg.modem_path()))
+    b = 64
+    var = torch.tensor(10 ** (-snr_db / 10), dtype=torch.float32)
+    params_cpu = make_chain_params(code, "cpu")
+    front = build_frontend_fn(spec, b, "cpu")(params_cpu, make_generator(5, "cpu"), var)
+    cpu = build_backend_fn(spec, b, "cpu")(params_cpu, *front, var)
+    before = kmeans_cuda.kmeans_estimate.launches
+    gpu = build_backend_fn(spec, b, cuda)(
+        make_chain_params(code, cuda), *(t.to(cuda) for t in front), var.to(cuda)
+    )
+    assert kmeans_cuda.kmeans_estimate.launches == before + (0 if spec.known_h else 1)
+    assert gpu.err_bit.device.type == "cuda"
+    assert int(gpu.err_blk) == int(cpu.err_blk)
+    if spec.schedule == "flooding-minsum":
+        assert int(gpu.err_bit) == int(cpu.err_bit)
+    if spec.metric_type:
+        # a losing candidate's soft syndrome can underflow to 0 on one
+        # device and not on the other (|metric| inf against a large finite
+        # value); the winners and their metrics agree
+        g, c = gpu.metrics.cpu(), cpu.metrics
+        assert torch.equal(g.argmin(dim=1), c.argmin(dim=1))
+        torch.testing.assert_close(g.amin(dim=1), c.amin(dim=1), rtol=1e-4, atol=0)
+    else:
+        assert torch.equal(gpu.metrics.cpu(), cpu.metrics)

@@ -1,5 +1,5 @@
 """kmldpc_torch blind detection against kmldpc_tpu: k-means, K1 wrapper,
-hard ambiguity selector."""
+and the ambiguity selectors (classic hard, soft, 5G hard, pruned)."""
 
 import jax
 import jax.numpy as jnp
@@ -8,15 +8,21 @@ import pytest
 import torch
 
 from kmldpc_tpu.decoder.bp import DecoderTables as JaxDecoderTables
+from kmldpc_tpu.decoder.bp_em import flooding_decode_em as jax_decode_em
 from kmldpc_tpu.detect.kmeans import make_blind_estimator as jax_make_blind_estimator
 from kmldpc_tpu.detect.metric import make_ambiguity_selector as jax_make_selector
+from kmldpc_tpu.ops import fading_awgn_channel as jax_channel
+from kmldpc_tpu.ops import make_encoder as jax_make_encoder
+from kmldpc_tpu.ops import make_mapper as jax_make_mapper
+from kmldpc_tpu.ops import random_bits as jax_random_bits
+from kmldpc_tpu.ops.encode import encoder_table as jax_encoder_table
 from kmldpc_tpu.ops.modem import ModemTables as JaxModemTables
 from kmldpc_torch.code import load_code
 from kmldpc_torch.io import parse_constellation
-from kmldpc_torch.decoder import DecoderTables
+from kmldpc_torch.decoder import DecoderTables, flooding_decode_em
 from kmldpc_torch.detect import kmeans_cuda
 from kmldpc_torch.detect.kmeans import blind_estimate, expand_candidates, make_blind_estimator
-from kmldpc_torch.detect.metric import make_ambiguity_selector
+from kmldpc_torch.detect.metric import complement_closed, make_ambiguity_selector
 from kmldpc_torch.ops import ModemTables, encoder_table, make_encoder, make_mapper
 
 TABLES = [  # (table, symbols per PEG2304 codeword)
@@ -135,6 +141,77 @@ def test_hard_selector_matches_jax(assets, peg, fname):
     np.testing.assert_array_equal(hr.numpy(), np.asarray(ref[0]))
     np.testing.assert_array_equal(hi.numpy(), np.asarray(ref[1]))
     np.testing.assert_allclose(llr.numpy(), np.asarray(ref[3]), rtol=1e-5, atol=1e-5)
+
+
+PEG, G5 = "PEG2304regular0.5.txt", "5GLDPCBG2a3_R12_K960.txt"
+SELECTORS = [
+    # (code, table, metric_type, check rule of the metric decodes, prune,
+    #  SNR in dB, blocks whose two smallest soft metrics lie within rtol 1e-4)
+    (PEG, "4bit_16QAM_Gray.txt", True, "sumprod", False, 8.0, ()),
+    (PEG, "4bit_16QAM_Gray.txt", True, "minsum", False, 8.0, ()),
+    (G5, "4bit_16QAM_Gray.txt", True, "sumprod", False, 14.0, ()),
+    (G5, "4bit_16QAM_Gray.txt", False, "sumprod", False, 14.0, ()),
+    (PEG, "2bits_QPSK.txt", False, "sumprod", True, 8.0, ()),
+]
+
+
+def _jax_blind_inputs(code, const, b, seed, snr_db):
+    """JAX's faded channel outputs of random codewords and JAX's k-means
+    candidates for them (numpy)."""
+    tables = JaxModemTables.from_constellation(const)
+    k_bits, k_chan = jax.random.split(jax.random.key(seed))
+    uu = jax_random_bits(k_bits, (b, code.code_dim))
+    _, cc_tx = jax_make_encoder(code)(uu, jax_encoder_table(code))
+    xr, xi = jax_make_mapper(tables)(cc_tx)
+    sigma = jnp.sqrt(jnp.float32(10 ** (-snr_db / 10)))
+    yr, yi, _, _ = jax_channel(k_chan, xr, xi, sigma, fading=True)
+    h4_r, h4_i = jax_make_blind_estimator(tables)(yr, yi)
+    return [np.array(a) for a in (yr, yi, h4_r, h4_i)]
+
+
+@pytest.mark.parametrize(
+    "code_file,table,metric_type,cn_rule,prune,snr_db,near_ties", SELECTORS,
+    ids=["soft-peg-16qam", "soft-minsum-peg-16qam", "soft-5g-16qam", "hard-5g-16qam",
+         "pruned-peg-qpsk"],
+)
+def test_selector_matches_jax(assets, code_file, table, metric_type, cn_rule, prune, snr_db,
+                              near_ties):
+    """The selectors that decode (soft metric, 5G hard metric) and the
+    pruned one, on JAX's channel outputs and candidates, B = 8: hard
+    |metric| values exactly equal, soft ones within rtol 1e-4; winners and
+    their LLRs equal, except on the blocks named in ``near_ties``."""
+    code = load_code(str(assets / code_file))
+    const = parse_constellation(str(assets / table))
+    b = 8
+    yr, yi, h4_r, h4_i = _jax_blind_inputs(code, const, b, 21, snr_db)
+    var = np.float32(10 ** (-snr_db / 10))
+    if prune:
+        assert complement_closed(code, const)
+    ref = jax.jit(jax_make_selector(
+        code, JaxModemTables.from_constellation(const), metric_type, 5,
+        decode=lambda t, llr, it: jax_decode_em(t, llr, it, cn_rule=cn_rule),
+        prune_complement=prune,
+    ))(JaxDecoderTables.from_code(code), yr, yi, h4_r, h4_i, var)
+    hr, hi, metrics, llr = make_ambiguity_selector(
+        code, ModemTables.from_constellation(const), metric_type, 5,
+        decode=lambda t, llr, it: flooding_decode_em(t, llr, it, cn_rule),
+        prune_complement=prune,
+    )(DecoderTables.from_code(code), *map(torch.from_numpy, (yr, yi, h4_r, h4_i)), var)
+    ref_hr, ref_hi, ref_metrics, ref_llr = (np.asarray(a) for a in ref)
+    assert metrics.shape == (b, 4) and llr.shape == (b, code.tx_len)
+    tied = ()  # exact hard ties go to the first minimum in both packages
+    if metric_type:
+        np.testing.assert_allclose(metrics.numpy(), ref_metrics, rtol=1e-4, atol=0)
+        two = np.sort(ref_metrics, axis=1)[:, :2]
+        tied = tuple(int(i) for i in np.nonzero(two[:, 1] - two[:, 0] <= 1e-4 * two[:, 0])[0])
+    else:
+        np.testing.assert_array_equal(metrics.numpy(), ref_metrics)
+    assert tied == near_ties
+    same = np.setdiff1d(np.arange(b), near_ties)
+    np.testing.assert_array_equal(hr.numpy()[same], ref_hr[same])
+    np.testing.assert_array_equal(hi.numpy()[same], ref_hi[same])
+    np.testing.assert_allclose(llr.numpy()[same], ref_llr[same], rtol=1e-5, atol=1e-5)
+    assert len(np.unique(metrics.numpy())) > 1  # the candidates were told apart
 
 
 def test_hard_selector_constructed_tie_takes_first(assets, peg):

@@ -135,24 +135,34 @@ def test_no_source_imports_the_jax_package():
 
 
 def test_cpu_chunk_loads_neither_jax_nor_kmldpc_tpu(assets, tmp_path):
-    """A blind chunk on the CPU, from config to counters, in a fresh process."""
+    """Chunks on the CPU, from config to counters, in a fresh process: the
+    blind hard-metric main path, the blind 5G soft metric (sweep 4) and
+    blind QPSK with flooding min-sum and pruned candidates (sweep 10)."""
     prog = (
         "import sys\n"
         "from kmldpc_torch.code import load_code\n"
         "from kmldpc_torch.config import load_config\n"
         "from kmldpc_torch.io import parse_constellation\n"
         "from kmldpc_torch.sim import ChainSpec, make_chunk_runner\n"
-        "cfg = load_config(sys.argv[1])\n"
-        "code = load_code(cfg.matrix_path())\n"
-        "spec = ChainSpec.from_config(cfg, code, parse_constellation(cfg.modem_path()))\n"
-        "assert not spec.known_h and code.name == 'PEG2304regular0.5'\n"
-        "r = make_chunk_runner(spec, 4, 1, 'cpu', seed=3)(15.0, 0, 10 ** -1.5)\n"
-        "assert r.tot_blk == 4 and r.metrics.shape == (4, 4)\n"
+        "for path in sys.argv[1:]:\n"
+        "    cfg = load_config(path)\n"
+        "    code = load_code(cfg.matrix_path())\n"
+        "    spec = ChainSpec.from_config(cfg, code, parse_constellation(cfg.modem_path()))\n"
+        "    assert not spec.known_h\n"
+        "    r = make_chunk_runner(spec, 4, 1, 'cpu', seed=3)(15.0, 0, 10 ** -1.5)\n"
+        "    assert r.tot_blk == 4 and r.metrics.shape == (4, 4)\n"
+        "    print(code.name, spec.metric_type, spec.schedule, int(r.err_blk))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'kmldpc_tpu'))\n"
-        "print(int(r.err_blk), bad)\n"
+        "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
+    sweeps = REPO / "benchmarks" / "parity" / "configs"
+    paths = [assets / "config.toml", sweeps / "sweep4_blind_5g_soft.toml",
+             sweeps / "sweep10_blind_qpsk_fminsum_prune.toml"]
     env = dict(os.environ, PYTHONPATH=str(REPO), KMLDPC_TORCH_CACHE=str(tmp_path))
-    out = subprocess.run([sys.executable, "-c", prog, str(assets / "config.toml")],
+    out = subprocess.run([sys.executable, "-c", prog, *map(str, paths)],
                          capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr[-2000:]
+    assert [line.rsplit(" ", 1)[0] for line in out.stdout.splitlines()[:3]] == [
+        "PEG2304regular0.5 False flooding", "5GLDPCBG2a3_R12_K960 True flooding",
+        "PEG2304regular0.5 False flooding-minsum"]

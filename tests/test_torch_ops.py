@@ -57,6 +57,25 @@ def test_encoder_bit_exact_vs_jax_and_oracle(peg):
         np.testing.assert_array_equal(cc_full[b].numpy(), peg.encode_reference(uu[b]))
 
 
+@pytest.mark.parametrize("active", [True, False])
+def test_encoder_5g_bit_exact_vs_jax_and_oracle(assets, active):
+    """5G: cc_full = [info | parity] over all 2112 columns, the first 2Z =
+    192 punctured from cc_tx (1920 bits = 480 16QAM symbols)."""
+    g5 = load_code(str(assets / "5GLDPCBG2a3_R12_K960.txt"))
+    uu = np.random.default_rng(6).integers(0, 2, size=(8, g5.code_dim)).astype(np.int8)
+    ref_full, ref_tx = jax.jit(jax_make_encoder(g5, active))(jnp.asarray(uu), jax_encoder_table(g5))
+    cc_full, cc_tx = make_encoder(g5, active)(torch.from_numpy(uu), encoder_table(g5))
+    assert cc_full.shape == (8, 2112) and cc_tx.shape == (8, g5.tx_len) == (8, 1920)
+    np.testing.assert_array_equal(cc_full.numpy(), np.asarray(ref_full))
+    np.testing.assert_array_equal(cc_tx.numpy(), np.asarray(ref_tx))
+    if active:
+        np.testing.assert_array_equal(cc_full[:, : g5.code_dim].numpy(), uu)
+        for b in range(2):
+            np.testing.assert_array_equal(cc_full[b].numpy(), g5.encode_reference(uu[b]))
+    else:
+        assert not cc_full.any()
+
+
 def test_encoder_inactive_all_zero(peg):
     uu = torch.ones((3, peg.code_dim), dtype=torch.int8)
     cc_full, _ = make_encoder(peg, active=False)(uu, encoder_table(peg))

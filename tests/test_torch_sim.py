@@ -1,20 +1,37 @@
-"""kmldpc_torch harness, CLI, device rule, refused knobs and the no-jax rule."""
+"""kmldpc_torch harness, CLI, device rule, ported and refused knobs, every
+shipped config, and the no-jax rule."""
 
 import dataclasses
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
 import pytest
 import torch
 
+from kmldpc_tpu.config import load_config as jax_load_config
+from kmldpc_tpu.sim import chain as jchain
+from kmldpc_torch.code import load_code
 from kmldpc_torch.config import load_config
+from kmldpc_torch.io import parse_constellation
+from kmldpc_torch.sim.chain import ChainSpec
 from kmldpc_torch.utils import SimLogger
 from kmldpc_torch import resolve_device
 from kmldpc_torch.sim import Simulator
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+CONFIGS = sorted([*REPO.glob("configs/*.toml"), *REPO.glob("benchmarks/parity/configs/*.toml")])
+# the shipped configs the port still refuses, and the ROADMAP.md Queue 1
+# item each names
+REFUSED = {
+    "sweep3b_known_5g16qam_minsum.toml": "layered min-sum",
+    "sweep7_blind_5g_soft_minsum.toml": "layered min-sum",
+    "sweep6_known_qpsk_bf16.toml": "bf16",
+    "peg8064_model_parallel.toml": "multi-device",
+    "peg8064_blind_model_parallel.toml": "multi-device",
+}
 
 
 @pytest.fixture(autouse=True)
@@ -72,12 +89,75 @@ def test_blind_sweep_is_deterministic(assets):
 
 
 @pytest.mark.parametrize(
+    "over",
+    [
+        dict(xcodec=dict(metric_type=True)),
+        dict(tpu=dict(schedule="flooding-minsum")),
+        dict(tpu=dict(metric_schedule="match")),
+        dict(tpu=dict(metric_schedule="match", schedule="flooding-minsum"),
+             xcodec=dict(metric_type=True)),
+        dict(tpu=dict(metric_prune=True), modem=dict(modem_file="2bits_QPSK.txt")),
+        dict(ldpc=dict(matrix_file="5GLDPCBG2a3_R12_K960.txt")),
+    ],
+    ids=["soft-metric", "flooding-minsum", "match", "match-minsum-soft", "metric-prune-qpsk",
+         "5g-matrix"],
+)
+def test_ported_knobs_run(assets, over):
+    """Each knob the port once refused: a Simulator on the CPU runs one
+    chunk of 4 blocks at 15 dB (assets/config.toml: blind 16QAM)."""
+    cfg = _cfg(assets, **{**over, "range": dict(maximum_block_number=4),
+                          "tpu": dict(batch=4, **over.get("tpu", {}))})
+    sim = Simulator(cfg, _quiet(), device="cpu")
+    r = sim.run_snr_point(15.0)
+    assert r.tot_blk == 4 and r.tot_bit == 4 * sim.code.code_dim
+    assert sim.code.code_dim == (960 if "ldpc" in over else 1152)
+
+
+def test_metric_prune_refuses_16qam_as_jax(assets):
+    """metric_prune on a table that is not complement-closed: the port
+    raises the JAX package's ValueError."""
+    cfg = _cfg(assets, tpu=dict(metric_prune=True))
+    with pytest.raises(ValueError, match="complement-closed") as ours:
+        Simulator(cfg, _quiet(), device="cpu")
+    code = load_code(cfg.matrix_path())
+    jspec = jchain.ChainSpec.from_config(
+        jax_load_config(str(assets / "config.toml")), code,
+        parse_constellation(cfg.modem_path()))
+    jspec = dataclasses.replace(jspec, metric_prune=True)
+    with pytest.raises(ValueError) as ref:
+        jchain.build_chain_fn(jspec, 4)
+    assert str(ours.value) == str(ref.value)
+
+
+def _open_queue1_items() -> list[str]:
+    """Titles of the items ROADMAP.md's Queue 1 lists as still lacking."""
+    text = (REPO / "ROADMAP.md").read_text()
+    queue = text[text.index("### Queue 1"):text.index("### Queue 2")]
+    lacking = queue[queue.index("**Still lacking"):]
+    return re.findall(r"^\d+\. \*\*(.+?)\.\*\*", lacking, re.M)
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
+def test_every_config_builds_or_names_an_open_item(path):
+    """Every config in configs/ and benchmarks/parity/configs/ gives a
+    ChainSpec, or a NotImplementedError naming a Queue 1 item that
+    ROADMAP.md still lists as open."""
+    cfg = load_config(str(path))
+    args = cfg, load_code(cfg.matrix_path()), parse_constellation(cfg.modem_path())
+    if path.name not in REFUSED:
+        assert ChainSpec.from_config(*args).max_iter == cfg.ldpc.max_iter
+        return
+    with pytest.raises(NotImplementedError) as e:
+        ChainSpec.from_config(*args)
+    item = re.search(r"ROADMAP\.md Queue 1, '(.+?)'", str(e.value)).group(1)
+    assert item == REFUSED[path.name]
+    assert item in _open_queue1_items()
+
+
+@pytest.mark.parametrize(
     "section,kv,item",
     [
-        ("xcodec", dict(metric_type=True), "soft metric"),
-        ("tpu", dict(schedule="flooding-minsum"), "min-sum family"),
-        ("tpu", dict(metric_schedule="match"), "min-sum family"),
-        ("tpu", dict(metric_prune=True), "min-sum family"),
+        ("tpu", dict(schedule="layered-minsum"), "layered min-sum"),
         ("tpu", dict(dtype="bfloat16"), "bf16"),
         ("tpu", dict(model_parallel=2), "multi-device"),
         ("tpu", dict(data_parallel=2), "multi-device"),
@@ -86,7 +166,6 @@ def test_blind_sweep_is_deterministic(assets):
         ("tpu", dict(debug_blocks=2), "snr_fold, checkpoints, histogram, dumps"),
         ("tpu", dict(checkpoint_path="x.json"), "snr_fold, checkpoints, histogram, dumps"),
         ("tpu", dict(profile_dir="x"), "snr_fold, checkpoints, histogram, dumps"),
-        ("ldpc", dict(matrix_file="5GLDPCBG2a3_R12_K960.txt"), "degree-class core and 5G"),
     ],
 )
 def test_unported_knobs_raise(assets, section, kv, item):

@@ -16,13 +16,15 @@ from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.ops import ModemTables, encoder_table
 from kmldpc_torch.params import from_jax_params, make_chain_params
 
-CODES = ["PEG2304regular0.5.txt", "PEG8064regular0.5.txt"]
+CODES = ["PEG2304regular0.5.txt", "PEG8064regular0.5.txt", "5GLDPCBG2a3_R12_K960.txt"]
 TABLES = [
     "2bits_4PSK.txt", "2bits_QPSK.txt", "4bit_16QAM_Gray.txt",
     "4bit_16QAM_phi1.txt", "4bit_16QAM_phi2.txt", "6bits_64QAM_Gray.txt",
 ]
-DEC_ARRAYS = ["perm_sm_c2r", "col_mask_sm", "row_mask_sm", "row_edge_col"]
-DEC_INTS = ["num_col", "num_row", "code_dim", "info_start", "dc", "dr"]
+DEC_ARRAYS = ["perm_sm_c2r", "row_edge_col", "col_sort", "col_unsort", "row_unsort",
+              "perm_cf_c2r", "row_col_cf"]
+DEC_STATIC = ["num_col", "num_row", "num_edges", "code_dim", "punct", "is_5g", "info_start",
+              "dc", "dr", "col_classes", "row_classes"]
 
 
 @pytest.fixture(autouse=True)
@@ -36,8 +38,9 @@ def _one_thread():
 
 
 def _assert_dec_equal(ours: DecoderTables, ref) -> None:
-    for f in DEC_INTS:
-        assert getattr(ours, f) == int(getattr(ref, f)), f
+    assert set(DEC_STATIC + DEC_ARRAYS) == set(DecoderTables.HOST_FIELDS)
+    for f in DEC_STATIC:
+        assert getattr(ours, f) == getattr(ref, f), f
     for f in DEC_ARRAYS:
         np.testing.assert_array_equal(
             getattr(ours, f).numpy(), np.asarray(getattr(ref, f)), err_msg=f
@@ -91,7 +94,16 @@ def test_from_jax_params(assets, fname):
     _assert_dec_equal(direct.dec, np_params.dec)
 
 
-def test_irregular_code_refused(assets):
-    code = load_code(str(assets / "5GLDPCBG2a3_R12_K960.txt"))
-    with pytest.raises(NotImplementedError, match="degree-class core and 5G"):
-        DecoderTables.from_code(code)
+def test_5g_tables(assets):
+    """The 5G BG2 K=960 code: 2Z = 192 punctured columns, info first, seven
+    column and five row degree classes that hold every edge once."""
+    t = DecoderTables.from_code(load_code(str(assets / "5GLDPCBG2a3_R12_K960.txt")))
+    assert (t.num_col, t.num_row, t.num_edges, t.punct, t.info_start) == (2112, 1152, 7392, 192, 0)
+    assert t.is_5g and not t.is_regular
+    assert [d for d, _ in t.col_classes] == [1, 2, 3, 4, 5, 7, 9]
+    assert [d for d, _ in t.row_classes] == [4, 5, 6, 8, 10]
+    for classes, nodes in ((t.col_classes, t.num_col), (t.row_classes, t.num_row)):
+        assert sum(n for _, n in classes) == nodes
+        assert sum(d * n for d, n in classes) == t.num_edges
+    assert torch.equal(torch.sort(t.perm_cf_c2r).values, torch.arange(t.num_edges))
+    assert torch.equal(t.col_sort[t.col_unsort], torch.arange(t.num_col))
