@@ -24,13 +24,34 @@ Phases (any failure raises and exits non-zero):
    count reset just before and read just after, then the same point three
    more times, warm, for its blocks/s;
 5. parity: the full 7-point sweep of that config, blind and known-h, then
-   sweeps 2 (blind 16QAM), 3 (known-h 5G 16QAM), 4 (blind 5G 16QAM, soft
-   metric), 5 (blind PEG8064 64QAM), 8 (sweep 5 with flooding min-sum),
+   all eleven sweeps of benchmarks/parity/configs: 1 (known-h QPSK),
+   2 (blind 16QAM), 3 (known-h 5G 16QAM), 3b (sweep 3 with layered
+   min-sum), 4 (blind 5G 16QAM, soft metric), 5 (blind PEG8064 64QAM),
+   6 (sweep 1 with bfloat16 messages), 7 (sweep 4 with layered min-sum for
+   the final and the metric decodes), 8 (sweep 5 with flooding min-sum),
    9 (known-h QPSK, flooding min-sum) and 10 (blind QPSK, flooding
-   min-sum, pruned candidates) of benchmarks/parity/configs, each z-tested
-   by tools/parity.py against its C++ reference log (|z| < 4), with K1's
-   launches counted per sweep: some on every blind sweep, none on a
-   known-h one.
+   min-sum, pruned candidates), each z-tested by tools/parity.py against
+   its C++ reference log (|z| < 4), with K1's launches counted per sweep:
+   some on every blind sweep, none on a known-h one;
+6. layered min-sum: sweep 3b's 12 dB LLRs at B = 1024 decoded on the card
+   and on the CPU (hard outputs, iterations and convergence bitwise
+   equal), the QC path against the generic path on the card (every output
+   bitwise equal), and the generic path on PEG2304's whole-matrix layer
+   (sweep 1's 5 dB LLRs) twice on the card (bitwise equal: the ordered
+   adds are deterministic); CUDA events time the layered decode and the
+   degree-class core's flooding min-sum on the same LLRs, single-phase and
+   two-phase;
+7. bfloat16 messages: sweep 6's back end at its 5 dB point, B = 1024, on
+   the card and on the CPU from the same channel outputs: equal block
+   errors;
+8. profile: ``torch.profiler`` over one B = 1024 chunk of sweep 7 at 14 dB
+   (blind 5G 16QAM, layered min-sum final and metric decodes), split by
+   the chain's ``record_function`` labels.
+
+Phases 6-8 run after the sweeps: after a profiler session the process's
+launch-bound work ran slower on the card, and the CPU decodes of phases
+6 and 7 share the host, so run earlier they would bias the sweeps'
+blocks/s.
 
 The line before the last is one JSON object describing the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -65,10 +86,14 @@ K1_CASES = (  # (code, table, symbols a codeword, SNR of the channel rows in dB)
 )
 # sweeps of benchmarks/parity/configs and the C++ reference log each is held to
 SWEEPS = (
+    ("sweep1_known_qpsk.toml", "ref_known_qpsk_r5.log"),
     ("sweep2_blind_16qam.toml", "ref_blind_16qam.log"),
     ("sweep3_known_5g16qam.toml", "ref_known_5g16qam.log"),
+    ("sweep3b_known_5g16qam_minsum.toml", "ref_known_5g16qam.log"),
     ("sweep4_blind_5g_soft.toml", "ref_blind_5g_soft.log"),
     ("sweep5_blind_8064_64qam.toml", "ref_blind_8064_64qam_r5.log"),
+    ("sweep6_known_qpsk_bf16.toml", "ref_known_qpsk_r5.log"),
+    ("sweep7_blind_5g_soft_minsum.toml", "ref_blind_5g_soft.log"),
     ("sweep8_blind_8064_fminsum.toml", "ref_blind_8064_64qam_r5.log"),
     ("sweep9_known_qpsk_fminsum.toml", "ref_known_qpsk_r5.log"),
     ("sweep10_blind_qpsk_fminsum_prune.toml", "ref_blind_qpsk.log"),
@@ -336,6 +361,165 @@ def phase_main_path(card: str, dev: torch.device) -> int:
     return launches
 
 
+def _sweep_point(toml: str, dev: torch.device, snr_db: float, b: int, seed: int):
+    """A parity sweep's spec and parameters on ``dev``, its noise variance at
+    ``snr_db`` and one front-end draw (uu, yr, yi, hr, hi) of ``b`` blocks."""
+    from kmldpc_torch.code import load_code
+    from kmldpc_torch.config import load_config
+    from kmldpc_torch.io import parse_constellation
+    from kmldpc_torch.ops.source import make_generator
+    from kmldpc_torch.params import make_chain_params
+    from kmldpc_torch.sim.chain import ChainSpec, build_frontend_fn
+
+    cfg = load_config(os.path.join(PARITY_DIR, "configs", toml))
+    code = load_code(cfg.matrix_path())
+    spec = ChainSpec.from_config(cfg, code, parse_constellation(cfg.modem_path()))
+    params = make_chain_params(code, dev, spec.schedule)
+    var = torch.tensor(10.0 ** (-0.1 * snr_db), dtype=torch.float32, device=dev)
+    front = build_frontend_fn(spec, b, dev)(params, make_generator(seed, dev), var)
+    return spec, params, var, front
+
+
+def _known_h_llr(spec, front, var) -> torch.Tensor:
+    from kmldpc_torch.ops.modem import ModemTables, make_soft_demapper
+
+    _, yr, yi, hr, hi = front
+    tables = ModemTables.from_constellation(spec.constellation, yr.device)
+    return make_soft_demapper(tables)(yr, yi, hr, hi, var)[1]
+
+
+def _same(a, b, fields=("uu_hat", "cc_hat", "converged", "iters", "soft_syndrome")) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu()) for f in fields)
+
+
+def phase_layered(dev: torch.device) -> dict:
+    from kmldpc_torch.decoder import (
+        flooding_decode_em,
+        layered_minsum_decode,
+        minsum_tables,
+        two_phase_generic,
+    )
+
+    b = 1024
+    spec, params, var, front = _sweep_point("sweep3b_known_5g16qam_minsum.toml", dev, 12.0, b, 11)
+    llr = _known_h_llr(spec, front, var)
+    it, alpha, ms = spec.max_iter, spec.minsum_alpha, params.ms
+    if ms.qc is None:
+        raise AssertionError("the 5G code did not take the QC path")
+    card = layered_minsum_decode(ms, llr, it, alpha)
+    t0 = time.monotonic()
+    cpu = layered_minsum_decode(minsum_tables(spec.code), llr.cpu(), it, alpha)
+    cpu_s = time.monotonic() - t0
+    if not _same(card, cpu, ("uu_hat", "cc_hat", "converged", "iters")):
+        raise AssertionError("layered min-sum (QC path): card and CPU hard outputs differ")
+    ss_err = float((card.soft_syndrome.cpu() - cpu.soft_syndrome).abs().max())
+    generic = layered_minsum_decode(minsum_tables(spec.code, use_qc=False, device=dev), llr, it,
+                                    alpha)
+    if not _same(card, generic):
+        raise AssertionError("layered min-sum on the card: QC and generic paths differ")
+    log(f"layered min-sum, sweep 3b at 12 dB, B={b}: {int(card.converged.sum())} converged, "
+        f"mean {float(card.iters.float().mean()):.3f} iterations; card == CPU (hard outputs, "
+        f"iterations, convergence; soft syndromes max |diff| {ss_err:.3g}; CPU decode "
+        f"{cpu_s:.3f} s); QC == generic on the card, every output")
+    spec1, _, var1, front1 = _sweep_point("sweep1_known_qpsk.toml", dev, 5.0, b, 12)
+    llr1 = _known_h_llr(spec1, front1, var1)
+    mt_peg = minsum_tables(spec1.code, device=dev)
+    if mt_peg.qc is not None or mt_peg.add_pos.shape[1] != 3:
+        raise AssertionError("PEG2304 did not take the generic whole-matrix layer")
+    runs = [layered_minsum_decode(mt_peg, llr1, it, alpha) for _ in range(2)]
+    if not _same(*runs):
+        raise AssertionError("layered min-sum (generic path): two runs on the card differ")
+    log(f"layered min-sum, generic path, PEG2304 sweep 1 at 5 dB, B={b}: "
+        f"{int(runs[0].converged.sum())} converged; two runs on the card bitwise equal")
+    tile = spec.tile or max(8, b // 8)
+
+    def layered(x, n):
+        return layered_minsum_decode(ms, x, n, alpha)
+
+    def flooding(x, n):
+        return flooding_decode_em(params.dec, x, n, "minsum", alpha)
+
+    fns = {
+        "layered": lambda: layered(llr, it),
+        "layered two-phase": lambda: two_phase_generic(layered, llr, it, spec.phase1_iters, tile),
+        "flooding min-sum": lambda: flooding(llr, it),
+        "flooding min-sum two-phase": lambda: two_phase_generic(
+            flooding, llr, it, spec.phase1_iters, tile),
+    }
+    times = {name: _time_ms(fn, 3) for name, fn in fns.items()}
+    log(f"decode times, 5G 16QAM sweep 3b at 12 dB, B={b}, {it} iterations at most "
+        f"(CUDA events, mean of 3 after one warm-up): "
+        + "; ".join(f"{name} {ms_:.3f} ms" for name, ms_ in times.items()))
+    return times
+
+
+def phase_bf16(dev: torch.device) -> None:
+    from kmldpc_torch.params import make_chain_params
+    from kmldpc_torch.sim.chain import build_backend_fn
+
+    b = 1024
+    spec, params, var, front = _sweep_point("sweep6_known_qpsk_bf16.toml", dev, 5.0, b, 13)
+    card = build_backend_fn(spec, b, dev)(params, *front, var)
+    cpu = build_backend_fn(spec, b, "cpu")(
+        make_chain_params(spec.code, "cpu"), *(t.cpu() for t in front), var.cpu())
+    blk = (int(card.err_blk), int(cpu.err_blk))
+    log(f"bfloat16 messages, sweep 6 at 5 dB, B={b}: block errors card {blk[0]}, CPU {blk[1]}; "
+        f"bit errors card {int(card.err_bit)}, CPU {int(cpu.err_bit)}")
+    if blk[0] != blk[1]:
+        raise AssertionError("bfloat16 back end: card and CPU block errors differ")
+
+
+LABELS = ("frontend", "kmeans", "metric", "demap", "decode", "counters")
+
+
+def phase_profile(dev: torch.device) -> None:
+    """Where a 5G chunk's time goes: torch.profiler over one B = 1024 chunk of
+    sweep 7 at 14 dB, by the chain's record_function labels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmldpc_torch.ops.source import make_generator
+    from kmldpc_torch.sim.chain import build_chain_fn
+
+    b = 1024
+    spec, params, var, _ = _sweep_point("sweep7_blind_5g_soft_minsum.toml", dev, 14.0, b, 14)
+    chain = build_chain_fn(spec, b, dev)
+    int(chain(params, make_generator(14, dev), var).err_blk)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        res = chain(params, make_generator(15, dev), var)
+        int(res.err_blk)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    events = prof.events()
+
+    def device_ms(evs) -> float:  # device_time_total, cuda_time_total before torch 2.4
+        name = "device_time_total" if hasattr(type(events[0]), "device_time_total") else (
+            "cuda_time_total")
+        return sum(getattr(e, name) for e in evs) / 1e3
+
+    split = {}
+    for label in LABELS:  # the host-side spans; their device time is their kernels'
+        evs = [e for e in events if e.name == label and e.device_type == DeviceType.CPU]
+        if evs:
+            split[label] = (sum(e.cpu_time_total for e in evs) / 1e3, device_ms(evs))
+    # device activities (kernels, copies), without the labels' own device-side spans
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in LABELS]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:  # union of the intervals
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    log(f"profile, sweep 7 at 14 dB, one chunk of B={b}: wall {wall * 1e3:.3f} ms, "
+        f"{int(res.err_blk)} block errors, mean {float(res.iters):.3f} iterations, "
+        f"{len(kernels)} device activities summing {device_ms(kernels):.3f} ms, busy "
+        f"{busy_us / 1e3:.3f} ms (idle share of the wall {1 - busy_us / (wall * 1e6):.3f})")
+    log("profile split (host ms in the span, device ms of its kernels): " + "; ".join(
+        f"{label} {h:.3f} / {d:.3f}" for label, (h, d) in split.items()))
+    if not kernels or "decode" not in split:
+        raise AssertionError("the profiler saw no device kernel or no decode span")
+
+
 def phase_parity(dev: torch.device) -> dict:
     from kmldpc_torch.config import load_config
     from kmldpc_torch.detect.kmeans_cuda import kmeans_estimate
@@ -391,6 +575,9 @@ def main() -> int:
     k1 = phase_k1(dev, fp32_ops_per_s())
     launches = phase_main_path(card, dev)
     phase_parity(dev)
+    phase_layered(dev)
+    phase_bf16(dev)
+    phase_profile(dev)
     qpsk = k1["times"]["PEG2304 2bits_QPSK.txt"]
     kernels = {"kernels": [{
         "name": "K1 blind k-means gain estimate",

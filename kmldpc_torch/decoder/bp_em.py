@@ -9,7 +9,10 @@ one node gather (posteriors -> row slots, serving the syndrome and v2c),
 then the check-node update.  Regular codes run the slot-major core,
 irregular codes (5G) the degree-class core; both take the check rule
 ``cn_rule``: "sumprod" (Gallager phi, the reference's rule) or "minsum"
-(normalised min-sum with factor ``alpha``).
+(normalised min-sum with factor ``alpha``), and the message storage type
+``msg_dtype`` (float32, or bfloat16 with float32 node arithmetic).
+:func:`two_phase_generic` gives any batch decoder (this one, the layered
+min-sum decoder) the exact two-phase schedule.
 
 Converged codewords freeze their outputs (hard decisions, iteration
 count, soft syndrome); the message array keeps updating, and as every
@@ -21,6 +24,8 @@ not change and the loop never runs past ``iter_count``.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 
@@ -84,19 +89,19 @@ def _insert_punct(t: DecoderTables, llr_tx: torch.Tensor) -> torch.Tensor:
 
 def _decode_cols(
     t: DecoderTables, llr_col: torch.Tensor, iter_count: int, cn_rule: str = "sumprod",
-    alpha: float = 0.75, exit_check_every: int = 4,
+    alpha: float = 0.75, msg_dtype: torch.dtype = torch.float32, exit_check_every: int = 4,
 ) -> DecodeResult:
     """Column-major core dispatch: regular codes run the slot-major core,
     irregular codes the degree-class core (no pad slots)."""
     if cn_rule not in ("sumprod", "minsum"):
         raise ValueError(f"unknown cn_rule {cn_rule!r}")
     core = _decode_cols_padded if t.is_regular else _decode_cols_classes
-    return core(t, llr_col, iter_count, cn_rule, alpha, exit_check_every)
+    return core(t, llr_col, iter_count, cn_rule, alpha, msg_dtype, exit_check_every)
 
 
 def _decode_cols_padded(
     t: DecoderTables, llr_col: torch.Tensor, iter_count: int, cn_rule: str = "sumprod",
-    alpha: float = 0.75, exit_check_every: int = 4,
+    alpha: float = 0.75, msg_dtype: torch.dtype = torch.float32, exit_check_every: int = 4,
 ) -> DecodeResult:
     """Slot-major flooding core of a regular code on column-major LLRs
     [num_col, B]; c2v lives as [dr, num_row, B].
@@ -108,7 +113,7 @@ def _decode_cols_padded(
     b = llr_col.shape[1]
     dev = llr_col.device
     dc, dr, nc, nr = t.dc, t.dr, t.num_col, t.num_row
-    c2v = torch.zeros((dr, nr, b), dtype=torch.float32, device=dev)
+    c2v = torch.zeros((dr, nr, b), dtype=msg_dtype, device=dev)
     cc_hat = torch.zeros((nc, b), dtype=torch.int8, device=dev)
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -117,7 +122,7 @@ def _decode_cols_padded(
         if i > 0 and i % exit_check_every == 0 and bool(conv.all()):
             break
         # --- variable nodes on the column-gathered view ---
-        c2v_col = c2v.reshape(-1, b)[t.perm_sm_c2r].reshape(dc, nc, b)
+        c2v_col = c2v.reshape(-1, b)[t.perm_sm_c2r].reshape(dc, nc, b).to(torch.float32)
         post = llr_col + c2v_col.sum(dim=0)  # [nc, B]
         hard = (post <= 0).to(torch.int8)
         cc_hat = torch.where(conv[None, :], cc_hat, hard)
@@ -128,7 +133,8 @@ def _decode_cols_padded(
         iters = iters + (~conv).to(torch.int32)
         conv = conv | ok
         # --- check nodes; v2c recomputed in place ---
-        c2v, ss_new = _cn(post_edge - c2v, cn_rule, alpha, llr_clip)
+        c2v_new, ss_new = _cn(post_edge - c2v.to(torch.float32), cn_rule, alpha, llr_clip)
+        c2v = c2v_new.to(msg_dtype)
         ss = torch.where(conv[None, :], ss, ss_new)
     uu_hat = cc_hat[t.info_start : t.info_start + t.code_dim]
     return DecodeResult(uu_hat, cc_hat, conv, iters, ss)
@@ -136,7 +142,7 @@ def _decode_cols_padded(
 
 def _decode_cols_classes(
     t: DecoderTables, llr_col: torch.Tensor, iter_count: int, cn_rule: str = "sumprod",
-    alpha: float = 0.75, exit_check_every: int = 4,
+    alpha: float = 0.75, msg_dtype: torch.dtype = torch.float32, exit_check_every: int = 4,
 ) -> DecodeResult:
     """Degree-class flooding core of an irregular code; same semantics and
     result layout as :func:`_decode_cols_padded`.
@@ -156,7 +162,7 @@ def _decode_cols_classes(
     row_spans = [d * n for d, n in t.row_classes]
     llr_s = llr_col[t.col_sort]  # degree-sorted column order
     llr_blocks = llr_s.split([n for _, n in t.col_classes])
-    c2v = torch.zeros((t.num_edges, b), dtype=torch.float32, device=dev)
+    c2v = torch.zeros((t.num_edges, b), dtype=msg_dtype, device=dev)
     cc_hat = torch.zeros((nc, b), dtype=torch.int8, device=dev)
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
@@ -165,7 +171,7 @@ def _decode_cols_classes(
         if i > 0 and i % exit_check_every == 0 and bool(conv.all()):
             break
         # --- variable nodes per column class on the column-flat view ---
-        c2v_col = c2v[t.perm_cf_c2r]  # [E, B]
+        c2v_col = c2v[t.perm_cf_c2r].to(torch.float32)  # [E, B]
         post = torch.cat([
             lb + blk.reshape(d, n, b).sum(dim=0)
             for (d, n), lb, blk in zip(t.col_classes, llr_blocks, c2v_col.split(col_spans))
@@ -183,8 +189,9 @@ def _decode_cols_classes(
         # --- check nodes per row class; v2c recomputed in place ---
         news, sss = [], []
         for (d, n), pe, ce in zip(t.row_classes, pe_blocks, c2v.split(row_spans)):
-            new, ss_blk = _cn(pe - ce.reshape(d, n, b), cn_rule, alpha, llr_clip)
-            news.append(new.reshape(d * n, b))
+            new, ss_blk = _cn(pe - ce.reshape(d, n, b).to(torch.float32), cn_rule, alpha,
+                              llr_clip)
+            news.append(new.to(msg_dtype).reshape(d * n, b))
             sss.append(ss_blk)
         c2v = torch.cat(news)
         ss = torch.where(conv[None, :], ss, torch.cat(sss))
@@ -201,56 +208,52 @@ def _batch_major(res: DecodeResult) -> DecodeResult:
 
 def flooding_decode_em(
     t: DecoderTables, chan_llr: torch.Tensor, iter_count: int, cn_rule: str = "sumprod",
-    alpha: float = 0.75,
+    alpha: float = 0.75, msg_dtype: torch.dtype = torch.float32,
 ) -> DecodeResult:
     """Flooding BP decode of [B, tx_len] channel LLRs log(P0/P1).
 
-    Same result semantics as ``kmldpc_tpu.decoder.bp_em.flooding_decode_em``
-    (float32 messages); batch-major outputs over all ``num_col`` columns.
+    Same result semantics as ``kmldpc_tpu.decoder.bp_em.flooding_decode_em``;
+    batch-major outputs over all ``num_col`` columns.  ``msg_dtype`` is the
+    storage type of the c2v messages: float32 (the reference's) or
+    bfloat16, which every read widens to float32 and every write rounds to
+    nearest even, as XLA's convert does; node arithmetic stays float32.
     """
     llr_col = _insert_punct(t, chan_llr.to(torch.float32).T.contiguous())
-    return _batch_major(_decode_cols(t, llr_col, iter_count, cn_rule, alpha))
+    return _batch_major(_decode_cols(t, llr_col, iter_count, cn_rule, alpha, msg_dtype))
 
 
-def flooding_decode_two_phase(
-    t: DecoderTables,
+def two_phase_generic(
+    decode: Callable[[torch.Tensor, int], DecodeResult],
     chan_llr: torch.Tensor,
     iter_count: int,
-    phase1_iters: int = 3,
+    phase1_iters: int = 8,
     tile: int = 128,
-    cn_rule: str = "sumprod",
-    alpha: float = 0.75,
 ) -> DecodeResult:
-    """Exact two-phase flooding decode, bit-identical to
-    :func:`flooding_decode_em`.
+    """Exact two-phase schedule of a deterministic batch decoder
+    ``decode(chan_llr, iter_count) -> DecodeResult`` (batch-major results).
 
     Phase 1 runs ``phase1_iters`` on the whole batch.  Phase 2 orders the
     codewords unconverged-first (stable argsort, so tiles are
     deterministic) and re-decodes them from scratch in ``tile``-wide
-    sub-batches with the full budget.  BP is deterministic per codeword,
-    so outputs equal the single-phase decoder's; only wasted work changes.
-    The last tile starts at ``b - tile`` and may re-decode converged
-    codewords, which rewrites identical values.
+    sub-batches with the full budget.  The decoder is deterministic per
+    codeword, so outputs equal ``decode``'s on the whole batch; only wasted
+    work changes.  The last tile starts at ``b - tile`` and may re-decode
+    converged codewords, which rewrites identical values.
     """
     b = chan_llr.shape[0]
     tile = min(max(8, tile), b)
     if tile >= b or phase1_iters >= iter_count:
-        return flooding_decode_em(t, chan_llr, iter_count, cn_rule, alpha)
-    llr_col = _insert_punct(t, chan_llr.to(torch.float32).T.contiguous())
-    p1 = _decode_cols(t, llr_col, phase1_iters, cn_rule, alpha)
+        return decode(chan_llr, iter_count)
+    uu_hat, cc_hat, conv, iters, ss = decode(chan_llr, phase1_iters)
     # unconverged (0) first; argsort does not take bool on every device
-    order = torch.argsort(p1.converged.to(torch.int32), stable=True)
-    n_unconv = int((~p1.converged).sum())
-    cc_hat, conv, iters, ss = p1.cc_hat, p1.converged, p1.iters, p1.soft_syndrome
-    k = 0
-    while k * tile < n_unconv:
-        start = min(k * tile, b - tile)
-        idx = order[start : start + tile]
-        sub = _decode_cols(t, llr_col[:, idx], iter_count, cn_rule, alpha)
-        cc_hat[:, idx] = sub.cc_hat
+    order = torch.argsort(conv.to(torch.int32), stable=True)
+    n_unconv = int((~conv).sum())
+    for start in range(0, n_unconv, tile):
+        idx = order[min(start, b - tile) :][:tile]
+        sub = decode(chan_llr[idx], iter_count)
+        uu_hat[idx] = sub.uu_hat
+        cc_hat[idx] = sub.cc_hat
         conv[idx] = sub.converged
         iters[idx] = sub.iters
-        ss[:, idx] = sub.soft_syndrome
-        k += 1
-    uu_hat = cc_hat[t.info_start : t.info_start + t.code_dim]
-    return _batch_major(DecodeResult(uu_hat, cc_hat, conv, iters, ss))
+        ss[idx] = sub.soft_syndrome
+    return DecodeResult(uu_hat, cc_hat, conv, iters, ss)

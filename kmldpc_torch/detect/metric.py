@@ -29,6 +29,7 @@ import torch
 from ..code.ldpc import LDPCCode
 from ..decoder.bp import DecoderTables, count_failed_checks
 from ..decoder.bp_em import flooding_decode_em
+from ..decoder.minsum import MinsumTables
 from ..io.constellation import Constellation
 from ..ops.modem import ModemTables, make_soft_demapper
 
@@ -69,7 +70,8 @@ def make_ambiguity_selector(
 ) -> Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Returns ``select(t, yr, yi, h4_r, h4_i, var) -> (hr, hi, metrics, llr_best)``.
 
-    ``t``: the code's DecoderTables; yr/yi [B, Nsym]; h4_* [B, 4].  Outputs:
+    ``t``: the code's DecoderTables, or the MinsumTables a layered
+    ``decode`` takes; yr/yi [B, Nsym]; h4_* [B, 4].  Outputs:
     the winning candidate per codeword ([B] each), the |metric| table
     [B, 4] float32, and the winner's channel LLRs [B, Nsym*m].
 
@@ -85,21 +87,22 @@ def make_ambiguity_selector(
         decode = flooding_decode_em
     nc = 2 if prune_complement else 4
 
-    def select(t: DecoderTables, yr, yi, h4_r, h4_i, var):
+    def select(t: DecoderTables | MinsumTables, yr, yi, h4_r, h4_i, var):
         b, nsym = yr.shape
+        dec_tabs = getattr(t, "base", t)  # MinsumTables carries its DecoderTables
         yrn = yr[:, None, :].expand(b, nc, nsym).reshape(b * nc, nsym)
         yin = yi[:, None, :].expand(b, nc, nsym).reshape(b * nc, nsym)
         h4_r, h4_i = h4_r[:, :nc], h4_i[:, :nc]
         bit_p0, chan_llr = demap(yrn, yin, h4_r.reshape(b * nc), h4_i.reshape(b * nc), var)
         if not needs_decode:
             rr = (bit_p0 > 0.5).to(torch.int8)  # NOTE: P(bit=0) > 0.5 -> 1
-            metric = count_failed_checks(t, rr).to(torch.float32)
+            metric = count_failed_checks(dec_tabs, rr).to(torch.float32)
         else:
             res = decode(t, chan_llr, metric_iter)
             if metric_type:
                 metric = torch.log(res.soft_syndrome).sum(dim=-1)  # kmcodec.cc:147-155
             else:
-                metric = count_failed_checks(t, res.cc_hat).to(torch.float32)
+                metric = count_failed_checks(dec_tabs, res.cc_hat).to(torch.float32)
         metrics = metric.abs().reshape(b, nc)  # abs: kmcodec.cc:140
         best = torch.argmin(metrics, dim=1)  # first minimum
         hr = h4_r.gather(1, best[:, None])[:, 0]

@@ -2,7 +2,8 @@
 ``kmldpc_tpu/sim/chain.py``):
 
     bits -> encode -> map -> channel -> [K1 k-means + ambiguity metric]
-         -> soft demap -> exact two-phase flooding decode -> error counters
+         -> soft demap -> exact two-phase decode (flooding, or layered
+            min-sum) -> error counters
 
 It is split into a random front end (bits to channel outputs, drawn from one
 ``torch.Generator``) and a deterministic back end
@@ -25,7 +26,8 @@ from torch.profiler import record_function
 
 from ..code.ldpc import LDPCCode
 from ..config import Config
-from ..decoder.bp_em import flooding_decode_em, flooding_decode_two_phase
+from ..decoder.bp_em import flooding_decode_em, two_phase_generic
+from ..decoder.minsum import layered_minsum_decode
 from ..detect.kmeans import make_blind_estimator
 from ..detect.kmeans_cuda import make_blind_estimator_cuda
 from ..detect.metric import complement_closed, make_ambiguity_selector
@@ -78,12 +80,17 @@ class ChainSpec:
     kmeans_impl: str = "auto"
     phase1_iters: int = 3
     tile: int = 0  # 0 = batch // 8 (at least 8)
-    # final-decode check rule: "flooding" (sum-product, the reference's) or
-    # "flooding-minsum" (normalised min-sum with minsum_alpha)
+    # final decode: "flooding" (sum-product, the reference's),
+    # "flooding-minsum" (normalised min-sum with minsum_alpha) or
+    # "layered-minsum" (decoder/minsum.py, params.ms)
     schedule: str = "flooding"
     minsum_alpha: float = 0.75
+    # c2v message storage of the flooding final decode: "float32" or
+    # "bfloat16" (node arithmetic float32); the layered schedule and the
+    # metric decodes ignore it, as in the JAX package
+    dtype: str = "float32"
     # metric decodes: "flooding" (sum-product, as the reference) or "match"
-    # (the final decode's check rule)
+    # (the final decode's schedule)
     metric_schedule: str = "flooding"
     # skip the -ĥ / -jĥ candidates where they tie +ĥ / +jĥ exactly
     # (detect/metric.py complement_closed)
@@ -93,10 +100,6 @@ class ChainSpec:
     def from_config(cfg: Config, code: LDPCCode, constellation: Constellation) -> "ChainSpec":
         """Spec of ``cfg``; raises NotImplementedError for unported knobs."""
         tpu = cfg.tpu
-        if tpu.schedule == "layered-minsum":
-            raise unported(f"[tpu] schedule = {tpu.schedule!r}", "layered min-sum")
-        if tpu.dtype != "float32":
-            raise unported(f"[tpu] dtype = {tpu.dtype!r}", "bf16")
         if cfg.histogram.enable:
             raise unported("[histogram] enable", "snr_fold, checkpoints, histogram, dumps")
         if tpu.kmeans_dump_dir:
@@ -121,6 +124,7 @@ class ChainSpec:
             tile=tpu.tile,
             schedule=tpu.schedule,
             minsum_alpha=tpu.minsum_alpha,
+            dtype=tpu.dtype,
             metric_schedule=tpu.metric_schedule,
             metric_prune=tpu.metric_prune,
         )
@@ -167,8 +171,11 @@ def build_backend_fn(
         estimate = make_blind_estimator(tables, spec.kmeans_iters, spec.kmeans_anchor)
     else:
         raise ValueError(f"unknown kmeans_impl {spec.kmeans_impl!r}")
-    if spec.schedule not in ("flooding", "flooding-minsum"):
+    if spec.schedule not in ("flooding", "layered-minsum", "flooding-minsum"):
         raise ValueError(f"unknown schedule {spec.schedule!r}")
+    if spec.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown tpu.dtype {spec.dtype!r}")
+    msg_dtype = torch.float32 if spec.dtype == "float32" else torch.bfloat16
     if spec.metric_schedule not in ("flooding", "match"):
         raise ValueError(f"unknown metric_schedule {spec.metric_schedule!r}")
     if spec.metric_prune and not complement_closed(code, spec.constellation):
@@ -178,21 +185,29 @@ def build_backend_fn(
             f"{spec.constellation.num_points}-point table / code "
             f"{code.name!r} do not qualify"
         )
+    layered = spec.schedule == "layered-minsum"
     cn_rule = "minsum" if spec.schedule == "flooding-minsum" else "sumprod"
-    mdecode = None
-    if spec.metric_schedule == "match" and cn_rule == "minsum":
-        def mdecode(t, llr, it):
-            return flooding_decode_em(t, llr, it, cn_rule, spec.minsum_alpha)
+    match = spec.metric_schedule == "match"
+
+    def batch_decode(tabs, llr, it, msg_dtype=torch.float32):
+        """The schedule's decoder on ``tabs`` (``params.ms`` if layered,
+        else ``params.dec``); ``msg_dtype`` applies to flooding only."""
+        if layered:
+            return layered_minsum_decode(tabs, llr, it, spec.minsum_alpha)
+        return flooding_decode_em(tabs, llr, it, cn_rule, spec.minsum_alpha, msg_dtype)
+
     select = None
     if not spec.known_h:
+        # "match" decodes the metric with the final schedule, in float32
         select = make_ambiguity_selector(
-            code, tables, spec.metric_type, spec.metric_iter, decode=mdecode,
-            prune_complement=spec.metric_prune,
+            code, tables, spec.metric_type, spec.metric_iter,
+            decode=batch_decode if match else None, prune_complement=spec.metric_prune,
         )
     tile = spec.tile or max(8, batch // 8)
 
     def backend(params: ChainParams, uu, yr, yi, hr_true, hi_true, var) -> ChunkResult:
         var = torch.as_tensor(var, dtype=torch.float32, device=yr.device)
+        tabs = params.ms if layered else params.dec
         if spec.known_h:
             metrics = torch.zeros((batch, 4), dtype=torch.float32, device=yr.device)
             with record_function("demap"):
@@ -201,11 +216,12 @@ def build_backend_fn(
             with record_function("kmeans"):
                 h4_r, h4_i = estimate(yr, yi)
             with record_function("metric"):
-                _, _, metrics, chan_llr = select(params.dec, yr, yi, h4_r, h4_i, var)
+                _, _, metrics, chan_llr = select(
+                    tabs if match else params.dec, yr, yi, h4_r, h4_i, var)
         with record_function("decode"):
-            res = flooding_decode_two_phase(
-                params.dec, chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters,
-                tile=tile, cn_rule=cn_rule, alpha=spec.minsum_alpha,
+            res = two_phase_generic(
+                lambda llr, it: batch_decode(tabs, llr, it, msg_dtype),
+                chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters, tile=tile,
             )
         with record_function("counters"):
             errs = (uu != res.uu_hat).sum(dim=1, dtype=torch.int32)  # [B]
@@ -251,7 +267,7 @@ def make_chunk_runner(
     sub-chunks are summed, metrics stacked to [n*batch, 4], iters averaged.
     """
     n = max(1, chunks_per_launch)
-    params = make_chain_params(spec.code, device)
+    params = make_chain_params(spec.code, device, spec.schedule)
     chain = build_chain_fn(spec, batch, device)
 
     def run_launch(snr: float, launch: int, var: float) -> ChunkResult:

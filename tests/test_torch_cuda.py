@@ -143,24 +143,31 @@ def test_slice_on_card_counts_like_cpu(assets, cuda, table, known_h):
     ("sweep3_known_5g16qam.toml", 15.0), ("sweep4_blind_5g_soft.toml", 14.0),
     ("sweep8_blind_8064_fminsum.toml", 17.5), ("sweep9_known_qpsk_fminsum.toml", 5.0),
     ("sweep10_blind_qpsk_fminsum_prune.toml", 10.0),
+    ("sweep3b_known_5g16qam_minsum.toml", 12.0), ("sweep6_known_qpsk_bf16.toml", 5.0),
+    ("sweep7_blind_5g_soft_minsum.toml", 14.0),
 ])
 def test_sweep_slice_on_card_counts_like_cpu(cuda, sweep, snr_db):
     """A parity sweep's configuration at one of its points, 64 blocks: the
     back end on the card and on the CPU, on the same channel outputs, give
-    the same block errors and winners; with min-sum (exact messages) also
-    the same bit errors.  With sum-product the bit errors of a codeword
-    that never converges may differ by rounding (ROADMAP.md Queue 3)."""
+    the same block errors and winners; with flooding min-sum also the same
+    bit errors.  The bit errors of a codeword that never converges follow
+    its LLRs to the last rounding: with sum-product (also with bfloat16
+    messages) they may differ (ROADMAP.md Queue 3), and so they do with
+    layered min-sum on the 5G 16QAM sweeps, whose demapped LLRs round
+    differently on the card (3471 against 3605 bits at sweep 3b's 12 dB
+    point).  The layered decoder itself is bitwise the CPU's on the same
+    LLRs (test_layered_decoder_on_card_equals_cpu)."""
     cfg = load_config(str(SWEEPS / sweep))
     code = load_code(cfg.matrix_path())
     spec = ChainSpec.from_config(cfg, code, parse_constellation(cfg.modem_path()))
     b = 64
     var = torch.tensor(10 ** (-snr_db / 10), dtype=torch.float32)
-    params_cpu = make_chain_params(code, "cpu")
+    params_cpu = make_chain_params(code, "cpu", spec.schedule)
     front = build_frontend_fn(spec, b, "cpu")(params_cpu, make_generator(5, "cpu"), var)
     cpu = build_backend_fn(spec, b, "cpu")(params_cpu, *front, var)
     before = kmeans_cuda.kmeans_estimate.launches
     gpu = build_backend_fn(spec, b, cuda)(
-        make_chain_params(code, cuda), *(t.to(cuda) for t in front), var.to(cuda)
+        make_chain_params(code, cuda, spec.schedule), *(t.to(cuda) for t in front), var.to(cuda)
     )
     assert kmeans_cuda.kmeans_estimate.launches == before + (0 if spec.known_h else 1)
     assert gpu.err_bit.device.type == "cuda"
@@ -176,3 +183,31 @@ def test_sweep_slice_on_card_counts_like_cpu(cuda, sweep, snr_db):
         torch.testing.assert_close(g.amin(dim=1), c.amin(dim=1), rtol=1e-4, atol=0)
     else:
         assert torch.equal(gpu.metrics.cpu(), cpu.metrics)
+
+
+@pytest.mark.parametrize("code_file,use_qc", [("5GLDPCBG2a3_R12_K960.txt", True),
+                                              ("5GLDPCBG2a3_R12_K960.txt", False),
+                                              ("PEG2304regular0.5.txt", True)],
+                         ids=["5g-qc", "5g-generic", "peg-whole-matrix"])
+def test_layered_decoder_on_card_equals_cpu(assets, cuda, code_file, use_qc):
+    """Layered min-sum on the same LLRs (B = 256, codewords that converge
+    and codewords that never do): the card's hard outputs, iterations and
+    convergence are bitwise the CPU's, and two runs on the card are bitwise
+    equal in every output (no atomics: the generic path adds each column's
+    updates in a fixed order)."""
+    from kmldpc_torch.decoder import layered_minsum_decode, minsum_tables
+
+    code = load_code(str(assets / code_file))
+    rng = np.random.default_rng(7)
+    uu = rng.integers(0, 2, size=(256, code.code_dim)).astype(np.uint8)
+    cc = np.stack([code.encode_reference(u) for u in uu])[:, code.punct:]
+    llr = torch.from_numpy((4.0 * (1 - 2 * cc.astype(np.float64))
+                            + rng.normal(scale=3.5, size=cc.shape)).astype(np.float32))
+    cpu = layered_minsum_decode(minsum_tables(code, use_qc=use_qc), llr, 50)
+    mt = minsum_tables(code, use_qc=use_qc, device=cuda)
+    card = [layered_minsum_decode(mt, llr.to(cuda), 50) for _ in range(2)]
+    assert 0 < int(cpu.converged.sum()) < 256
+    for f in ("uu_hat", "cc_hat", "converged", "iters"):
+        assert torch.equal(getattr(card[0], f).cpu(), getattr(cpu, f)), f
+    for a, b in zip(*card):
+        assert torch.equal(a, b)

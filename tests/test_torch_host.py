@@ -136,8 +136,9 @@ def test_no_source_imports_the_jax_package():
 
 def test_cpu_chunk_loads_neither_jax_nor_kmldpc_tpu(assets, tmp_path):
     """Chunks on the CPU, from config to counters, in a fresh process: the
-    blind hard-metric main path, the blind 5G soft metric (sweep 4) and
-    blind QPSK with flooding min-sum and pruned candidates (sweep 10)."""
+    blind hard-metric main path, the blind 5G soft metric (sweep 4), blind
+    QPSK with flooding min-sum and pruned candidates (sweep 10) and the
+    blind 5G soft metric with layered min-sum (sweep 7)."""
     prog = (
         "import sys\n"
         "from kmldpc_torch.code import load_code\n"
@@ -158,11 +159,12 @@ def test_cpu_chunk_loads_neither_jax_nor_kmldpc_tpu(assets, tmp_path):
     )
     sweeps = REPO / "benchmarks" / "parity" / "configs"
     paths = [assets / "config.toml", sweeps / "sweep4_blind_5g_soft.toml",
-             sweeps / "sweep10_blind_qpsk_fminsum_prune.toml"]
+             sweeps / "sweep10_blind_qpsk_fminsum_prune.toml",
+             sweeps / "sweep7_blind_5g_soft_minsum.toml"]
     env = dict(os.environ, PYTHONPATH=str(REPO), KMLDPC_TORCH_CACHE=str(tmp_path))
     out = subprocess.run([sys.executable, "-c", prog, *map(str, paths)],
                          capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr[-2000:]
-    assert [line.rsplit(" ", 1)[0] for line in out.stdout.splitlines()[:3]] == [
+    assert [line.rsplit(" ", 1)[0] for line in out.stdout.splitlines()[:4]] == [
         "PEG2304regular0.5 False flooding", "5GLDPCBG2a3_R12_K960 True flooding",
-        "PEG2304regular0.5 False flooding-minsum"]
+        "PEG2304regular0.5 False flooding-minsum", "5GLDPCBG2a3_R12_K960 True layered-minsum"]

@@ -26,9 +26,6 @@ CONFIGS = sorted([*REPO.glob("configs/*.toml"), *REPO.glob("benchmarks/parity/co
 # the shipped configs the port still refuses, and the ROADMAP.md Queue 1
 # item each names
 REFUSED = {
-    "sweep3b_known_5g16qam_minsum.toml": "layered min-sum",
-    "sweep7_blind_5g_soft_minsum.toml": "layered min-sum",
-    "sweep6_known_qpsk_bf16.toml": "bf16",
     "peg8064_model_parallel.toml": "multi-device",
     "peg8064_blind_model_parallel.toml": "multi-device",
 }
@@ -98,9 +95,12 @@ def test_blind_sweep_is_deterministic(assets):
              xcodec=dict(metric_type=True)),
         dict(tpu=dict(metric_prune=True), modem=dict(modem_file="2bits_QPSK.txt")),
         dict(ldpc=dict(matrix_file="5GLDPCBG2a3_R12_K960.txt")),
+        dict(tpu=dict(schedule="layered-minsum"),
+             ldpc=dict(matrix_file="5GLDPCBG2a3_R12_K960.txt")),
+        dict(tpu=dict(dtype="bfloat16")),
     ],
     ids=["soft-metric", "flooding-minsum", "match", "match-minsum-soft", "metric-prune-qpsk",
-         "5g-matrix"],
+         "5g-matrix", "layered-minsum", "bf16"],
 )
 def test_ported_knobs_run(assets, over):
     """Each knob the port once refused: a Simulator on the CPU runs one
@@ -124,6 +124,21 @@ def test_metric_prune_refuses_16qam_as_jax(assets):
         jax_load_config(str(assets / "config.toml")), code,
         parse_constellation(cfg.modem_path()))
     jspec = dataclasses.replace(jspec, metric_prune=True)
+    with pytest.raises(ValueError) as ref:
+        jchain.build_chain_fn(jspec, 4)
+    assert str(ours.value) == str(ref.value)
+
+
+def test_bad_dtype_raises_as_jax(assets):
+    """An unknown [tpu] dtype: the port raises the JAX package's ValueError."""
+    cfg = _cfg(assets, tpu=dict(dtype="float16"))
+    with pytest.raises(ValueError, match="tpu.dtype") as ours:
+        Simulator(cfg, _quiet(), device="cpu")
+    code = load_code(cfg.matrix_path())
+    jspec = jchain.ChainSpec.from_config(
+        jax_load_config(str(assets / "config.toml")), code,
+        parse_constellation(cfg.modem_path()))
+    jspec = dataclasses.replace(jspec, dtype="float16")
     with pytest.raises(ValueError) as ref:
         jchain.build_chain_fn(jspec, 4)
     assert str(ours.value) == str(ref.value)
@@ -157,8 +172,6 @@ def test_every_config_builds_or_names_an_open_item(path):
 @pytest.mark.parametrize(
     "section,kv,item",
     [
-        ("tpu", dict(schedule="layered-minsum"), "layered min-sum"),
-        ("tpu", dict(dtype="bfloat16"), "bf16"),
         ("tpu", dict(model_parallel=2), "multi-device"),
         ("tpu", dict(data_parallel=2), "multi-device"),
         ("histogram", dict(enable=True), "snr_fold, checkpoints, histogram, dumps"),
