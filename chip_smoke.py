@@ -1,6 +1,6 @@
 """Drive the PyTorch port (kmldpc_torch) on one CUDA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--counts-dir DIR]
 
 Phases (any failure raises and exits non-zero):
 
@@ -23,17 +23,31 @@ Phases (any failure raises and exits non-zero):
    configs/main_path_blind_qpsk.toml restricted to 15 dB, with K1's launch
    count reset just before and read just after, then the same point three
    more times, warm, for its blocks/s;
-5. parity: the full 7-point sweep of that config, blind and known-h, then
-   all eleven sweeps of benchmarks/parity/configs: 1 (known-h QPSK),
+5. parity: the full 7-point sweep of that config, blind and known-h
+   (sequential), then all eleven sweeps of benchmarks/parity/configs,
+   folded as their ``snr_fold = 8`` asks: 1 (known-h QPSK),
    2 (blind 16QAM), 3 (known-h 5G 16QAM), 3b (sweep 3 with layered
    min-sum), 4 (blind 5G 16QAM, soft metric), 5 (blind PEG8064 64QAM),
    6 (sweep 1 with bfloat16 messages), 7 (sweep 4 with layered min-sum for
    the final and the metric decodes), 8 (sweep 5 with flooding min-sum),
    9 (known-h QPSK, flooding min-sum) and 10 (blind QPSK, flooding
    min-sum, pruned candidates), each z-tested by tools/parity.py against
-   its C++ reference log (|z| < 4), with K1's launches counted per sweep:
-   some on every blind sweep, none on a known-h one;
-6. layered min-sum: sweep 3b's 12 dB LLRs at B = 1024 decoded on the card
+   its C++ reference log (|z| < 4, and the worst |z| the sequential path
+   gave, to the digit), the min-sum, bfloat16 and pruned sweeps also
+   against the JAX package's committed counts (|z| < 4), with K1's
+   launches counted per sweep: some on every blind sweep, none on a
+   known-h one; each run's exact counters on a ``parity-counts`` line;
+6. harness: (a) configs/fast_stack_qpsk.toml in full, folded and
+   sequential, bitwise equal counters, z-tested like the sweeps, K1
+   launched; (b) a killed two-point cut of sweep 1 resumed from its
+   checkpoint, sequential and folded, bitwise the uninterrupted run;
+   (c) histogram files of a three-point cut of sweep 2, folded ==
+   sequential byte for byte; (d) the k-means dump of sweep 2 at 18 dB;
+   (e) debug lines folded == sequential; (f) the card's demapped 16QAM LLRs
+   against a float64 demap beside the CPU's (sweep 3b and 7 shapes);
+   (g) the edge-major reference decoder card against CPU, and the
+   uniform-prior demap against the soft demap;
+7. layered min-sum: sweep 3b's 12 dB LLRs at B = 1024 decoded on the card
    and on the CPU (hard outputs, iterations and convergence bitwise
    equal), the QC path against the generic path on the card (every output
    bitwise equal), and the generic path on PEG2304's whole-matrix layer
@@ -41,17 +55,21 @@ Phases (any failure raises and exits non-zero):
    adds are deterministic); CUDA events time the layered decode and the
    degree-class core's flooding min-sum on the same LLRs, single-phase and
    two-phase;
-7. bfloat16 messages: sweep 6's back end at its 5 dB point, B = 1024, on
+8. bfloat16 messages: sweep 6's back end at its 5 dB point, B = 1024, on
    the card and on the CPU from the same channel outputs: equal block
    errors;
-8. profile: ``torch.profiler`` over one B = 1024 chunk of sweep 7 at 14 dB
+9. profile: ``torch.profiler`` over one B = 1024 chunk of sweep 7 at 14 dB
    (blind 5G 16QAM, layered min-sum final and metric decodes), split by
-   the chain's ``record_function`` labels.
+   the chain's ``record_function`` labels;
+10. profile_dir: one point of sweep 1 with ``[tpu] profile_dir``; its trace
+    must exist and hold device kernels.
 
-Phases 6-8 run after the sweeps: after a profiler session the process's
-launch-bound work ran slower on the card, and the CPU decodes of phases
-6 and 7 share the host, so run earlier they would bias the sweeps'
-blocks/s.
+Phases 7-10 run after the sweeps and the harness: after a profiler session
+the process's launch-bound work ran slower on the card, and the CPU decodes
+of phases 7 and 8 share the host, so run earlier they would bias the
+sweeps' blocks/s.  ``--counts-dir`` also writes each parity run's counters
+(and the fast stack's) as one JSON file, in the format of
+benchmarks/parity/ours_*.json.
 
 The line before the last is one JSON object describing the kernels; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -98,6 +116,24 @@ SWEEPS = (
     ("sweep9_known_qpsk_fminsum.toml", "ref_known_qpsk_r5.log"),
     ("sweep10_blind_qpsk_fminsum_prune.toml", "ref_blind_qpsk.log"),
 )
+# the worst |z| of each parity run against its reference log, as the
+# sequential path gave it (main-path pair, then sweeps 1-10 in SWEEPS'
+# order); the folded sweeps must repeat it to the digit
+EXPECTED_WORST_Z = dict(zip(
+    ["blind QPSK", "known-h QPSK"] + [t.removesuffix(".toml") for t, _ in SWEEPS],
+    ["1.453", "2.765", "1.931", "0.851", "1.376", "2.990", "2.408", "2.195", "1.931",
+     "2.083", "1.891", "2.081", "2.265"]))
+# the JAX package's committed counts for the configurations that differ
+# from the C++ reference's algorithm
+JAX_RECORDS = {
+    "sweep3b_known_5g16qam_minsum": "ours_known_5g16qam_minsum_r5.json",
+    "sweep6_known_qpsk_bf16": "ours_known_qpsk_bf16_r5.json",
+    "sweep7_blind_5g_soft_minsum": "ours_blind_5g_soft_minsum_r5.json",
+    "sweep8_blind_8064_fminsum": "ours_blind_8064_fminsum_r5.json",
+    "sweep9_known_qpsk_fminsum": "ours_known_qpsk_fminsum_r5.json",
+    "sweep10_blind_qpsk_fminsum_prune": "ours_blind_qpsk_fminsum_prune.json",
+    "fast stack": "ours_blind_qpsk_fminsum_prune.json",
+}
 K1_BATCHES = (1024, 100, 12, 7)
 # the kernel alone at 33 blocks (one warp a scheduler on 33 SMs), at the
 # main path's batch, and at four times it: how its time follows the warps
@@ -111,6 +147,9 @@ K1_ITERS = 20
 # read once and the candidates written once, at 3.35 TB/s
 DISTANCE_OPS = 6
 HBM_BYTES_PER_S = 3.35e12
+# the card's worst and mean |LLR error| against a float64 demap may exceed
+# the CPU's by at most this factor (tests/test_torch_rounding.py's margin)
+LLR_MARGIN = 1.10
 
 
 def log(msg: str) -> None:
@@ -520,7 +559,38 @@ def phase_profile(dev: torch.device) -> None:
         raise AssertionError("the profiler saw no device kernel or no decode span")
 
 
+def _worst_z(rows: list[dict]) -> float:
+    return max((max(abs(r["z_fer"]), abs(r["z_ber"])) for r in rows), default=0.0)
+
+
+def _z_against_jax_record(name: str, results, info_bits: int, record: str) -> float:
+    """Worst |z| of a sweep's counts against the JAX package's committed
+    counts for the same configuration (tools/parity.py's compare, the JAX
+    list keyed by SNR); logs it."""
+    from tools.parity import compare
+
+    with open(os.path.join(PARITY_DIR, record)) as f:
+        ref = {o["snr"]: o for o in json.load(f)}
+    rows = compare(ref, [dataclasses.asdict(r) for r in results], info_bits)
+    worst = _worst_z(rows)
+    log(f"parity {name} vs JAX record {record}: worst |z| = {worst:.3f} over {len(rows)} points")
+    if len(rows) != len(results):
+        raise AssertionError(f"{name}: {len(rows)} of {len(results)} points in {record}")
+    return worst
+
+
+def _counts_line(name: str, results) -> dict:
+    """Print a sweep's exact counters as one ``parity-counts {json}`` line;
+    returns the entries (the format of benchmarks/parity/ours_*.json)."""
+    points = [dict(snr=r.snr, tot_blk=r.tot_blk, err_blk=r.err_blk, err_bit=r.err_bit,
+                   tot_bit=r.tot_bit, err_bit_sq=r.err_bit_sq, ber=r.ber, fer=r.fer,
+                   blocks_per_s=r.blocks_per_s) for r in results]
+    print("parity-counts " + json.dumps({"sweep": name, "points": points}), flush=True)
+    return points
+
+
 def phase_parity(dev: torch.device) -> dict:
+    """The thirteen parity runs; returns each run's per-point counters."""
     from kmldpc_torch.config import load_config
     from kmldpc_torch.detect.kmeans_cuda import kmeans_estimate
     from kmldpc_torch.sim import Simulator
@@ -535,10 +605,12 @@ def phase_parity(dev: torch.device) -> dict:
          "ref_known_qpsk_r5.log"),
     ] + [(toml.removesuffix(".toml"), load_config(os.path.join(PARITY_DIR, "configs", toml)), ref)
          for toml, ref in SWEEPS]
-    launches, failed = {}, []
+    launches, counts, failed = {}, {}, []
     for name, c, ref_name in runs:
         quiet = SimLogger(log_dir=None, stdout=False)
         sim = Simulator(c, quiet, device=dev)
+        if bool(sim.snr_fold) != (c.tpu.snr_fold > 1):
+            failed.append(f"{name}: snr_fold {c.tpu.snr_fold} ran with {sim.snr_fold} slots")
         t0 = time.monotonic()
         kmeans_estimate.launches = 0
         results = sim.simulate()
@@ -550,23 +622,388 @@ def phase_parity(dev: torch.device) -> dict:
             failed.append(f"{name}: {len(rows)} of {len(results)} points compared")
         if c.decoder.true_h_arg == (launches[name] > 0):
             failed.append(f"{name}: K1 launched {launches[name]} times")
-        worst = 0.0
+        rate = "blocks/s of attributed wall" if sim.snr_fold else "blocks/s"
         for r, res in zip(rows, results):
-            worst = max(worst, abs(r["z_fer"]), abs(r["z_ber"]))
             log(f"parity {name} {r['snr']:6.2f} dB: FER {r['our_fer']:.5f} (ref "
                 f"{r['ref_fer']:.5f}, z {r['z_fer']:+.2f}), BER {r['our_ber']:.6f} "
                 f"(ref {r['ref_ber']:.6f}, z {r['z_ber']:+.2f}), {res.tot_blk} blocks, "
-                f"{res.blocks_per_s:.1f} blocks/s")
+                f"{res.blocks_per_s:.1f} {rate}")
+        worst = _worst_z(rows)
+        mode = f"folded, {sim.snr_fold} slots" if sim.snr_fold else "sequential"
         log(f"parity {name} vs {ref_name}: worst |z| = {worst:.3f} over "
-            f"{len(rows)} points, sweep {wall:.3f} s, K1 launches {launches[name]}")
+            f"{len(rows)} points, sweep {wall:.3f} s ({mode}), K1 launches {launches[name]}")
         if not worst < 4.0:
             failed.append(f"parity {name}: worst |z| {worst:.3f} >= 4")
+        if f"{worst:.3f}" != EXPECTED_WORST_Z[name]:
+            failed.append(f"parity {name}: worst |z| {worst:.3f}, expected "
+                          f"{EXPECTED_WORST_Z[name]} (the sequential path's)")
+        if name in JAX_RECORDS and not _z_against_jax_record(
+                name, results, sim.code.code_dim, JAX_RECORDS[name]) < 4.0:
+            failed.append(f"parity {name}: |z| >= 4 against {JAX_RECORDS[name]}")
+        counts[name] = _counts_line(name, results)
     if failed:
         raise AssertionError("; ".join(failed))
-    return launches
+    return counts
 
 
-def main() -> int:
+def _replace(cfg, **over):
+    """``cfg`` with some fields of its sections replaced."""
+    for section, kv in over.items():
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kv)})
+    return cfg
+
+
+def _sweep_cfg(toml: str, **over):
+    from kmldpc_torch.config import load_config
+
+    return _replace(load_config(os.path.join(PARITY_DIR, "configs", toml)), **over)
+
+
+def _counters(results) -> list[tuple]:
+    return [(r.snr, r.tot_blk, r.err_blk, r.err_bit, r.tot_bit, r.err_bit_sq) for r in results]
+
+
+def harness_fast_stack(dev: torch.device) -> tuple[int, list[dict]]:
+    """(a) configs/fast_stack_qpsk.toml in full, folded (its snr_fold = 8,
+    7 slots) and sequential: bitwise equal per-point counters, both z-tested
+    against the C++ log and the JAX record, both launching K1."""
+    from kmldpc_torch.config import load_config
+    from kmldpc_torch.detect.kmeans_cuda import kmeans_estimate
+    from kmldpc_torch.sim import Simulator
+    from kmldpc_torch.utils import SimLogger
+    from tools.parity import compare, parse_reference_log
+
+    cfg = load_config(os.path.join(HERE, "configs", "fast_stack_qpsk.toml"))
+    ref = parse_reference_log(os.path.join(PARITY_DIR, "ref_blind_qpsk.log"))
+    out, launches = {}, {}
+    for mode, fold in (("folded", cfg.tpu.snr_fold), ("sequential", 0)):
+        sim = Simulator(_replace(cfg, tpu=dict(snr_fold=fold)),
+                        SimLogger(log_dir=None, stdout=False), device=dev)
+        kmeans_estimate.launches = 0
+        t0 = time.monotonic()
+        results = sim.simulate()
+        wall = time.monotonic() - t0
+        launches[mode] = kmeans_estimate.launches
+        rows = compare(ref, [dataclasses.asdict(r) for r in results], sim.code.code_dim)
+        worst = _worst_z(rows)
+        log(f"harness fast stack {mode} ({sim.snr_fold} slots, {sim.runner.blocks_per_launch} "
+            f"blocks a launch): {len(results)} points x {results[0].tot_blk} blocks, wall "
+            f"{wall:.3f} s, K1 launches {launches[mode]}, worst |z| {worst:.3f} vs "
+            f"ref_blind_qpsk.log; blocks/s " + ", ".join(f"{r.blocks_per_s:.1f}" for r in results))
+        jax_z = _z_against_jax_record(f"fast stack {mode}", results, sim.code.code_dim,
+                                      JAX_RECORDS["fast stack"])
+        if len(rows) != 7 or not worst < 4.0 or not jax_z < 4.0 or launches[mode] <= 0:
+            raise AssertionError(f"fast stack {mode}: {len(rows)} points, |z| {worst:.3f} / "
+                                 f"{jax_z:.3f}, K1 launches {launches[mode]}")
+        out[mode] = results
+    if _counters(out["folded"]) != _counters(out["sequential"]):
+        raise AssertionError("fast stack: folded and sequential counters differ")
+    log(f"harness fast stack: folded == sequential bitwise at all 7 points; K1 launches "
+        f"folded {launches['folded']}, sequential {launches['sequential']}")
+    return launches["folded"], _counts_line("fast stack", out["folded"])
+
+
+class _Killed(RuntimeError):
+    pass
+
+
+def harness_resume(dev: torch.device) -> None:
+    """(b) Checkpoint kill and resume on the card: a two-point cut of sweep 1
+    (one sub-chunk a launch, 6 launches a point) killed at its fourth
+    runner call, then resumed, sequential and folded; each resume gives
+    bitwise the counters of an uninterrupted run, and the folded run the
+    sequential one's."""
+    from kmldpc_torch.sim import Simulator, make_chunk_runner
+    from kmldpc_torch.utils import SimLogger
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def cfg(name, fold):
+            return _sweep_cfg("sweep1_known_qpsk.toml",
+                              range=dict(minimum_snr=5.0, maximum_snr=7.5),
+                              tpu=dict(chunks_per_launch=1, snr_fold=fold,
+                                       checkpoint_path=os.path.join(tmp, name)))
+
+        def killing(real):
+            calls = {"n": 0}
+
+            def run(*args):
+                if calls["n"] == 3:
+                    raise _Killed()
+                calls["n"] += 1
+                return real(*args)
+
+            run.blocks_per_launch = real.blocks_per_launch
+            return run
+
+        results = {}
+        for mode, fold in (("sequential", 0), ("folded", 2)):
+            quiet = SimLogger(log_dir=None, stdout=False)
+            if fold:
+                sim = Simulator(cfg(mode, fold), quiet, device=dev)
+                sim.runner = killing(sim.runner)
+            else:
+                seed = cfg(mode, fold).tpu.seed
+                sim = Simulator(cfg(mode, fold), quiet, device=dev, runner_factory=(
+                    lambda spec, batch: killing(make_chunk_runner(spec, batch, 1, dev, seed))))
+            try:
+                sim.simulate()
+                raise AssertionError(f"{mode}: the killing runner never raised")
+            except _Killed:
+                pass
+            with open(os.path.join(tmp, mode)) as f:
+                state = json.load(f)["snr"]
+            consumed = {k: v["chunks"] for k, v in state.items()}
+            resumed = Simulator(cfg(mode, fold), SimLogger(log_dir=None, stdout=False),
+                                device=dev).simulate()
+            control = Simulator(cfg(mode + "-control", fold),
+                                SimLogger(log_dir=None, stdout=False), device=dev).simulate()
+            if _counters(resumed) != _counters(control):
+                raise AssertionError(f"{mode} resume differs from an uninterrupted run")
+            results[mode] = control
+            log(f"harness resume {mode}: killed at runner call 4 with launches consumed "
+                f"{consumed}; resumed == uninterrupted bitwise "
+                f"({[(r.snr, r.tot_blk, r.err_blk, r.err_bit) for r in resumed]})")
+    if _counters(results["sequential"]) != _counters(results["folded"]):
+        raise AssertionError("resume cut: folded and sequential counters differ")
+
+
+def harness_histogram(dev: torch.device) -> None:
+    """(c) Histogram mode on sweep 2 (blind 16QAM) cut to three points of
+    2048 blocks: folded and sequential files byte-identical, one row a
+    block, minimum first."""
+    from kmldpc_torch.sim import Simulator
+    from kmldpc_torch.utils import SimLogger
+
+    here = os.getcwd()
+    texts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for mode, fold in (("sequential", 0), ("folded", 8)):
+                os.makedirs(os.path.join(tmp, mode))
+                os.chdir(os.path.join(tmp, mode))
+                c = _sweep_cfg("sweep2_blind_16qam.toml", histogram=dict(enable=True),
+                               range=dict(maximum_snr=15.0, maximum_block_number=2048),
+                               tpu=dict(snr_fold=fold))
+                Simulator(c, SimLogger(log_dir=None, stdout=False), device=dev).simulate()
+                texts[mode] = {f: open(f, "rb").read() for f in sorted(os.listdir("."))}
+        finally:
+            os.chdir(here)
+    if list(texts["sequential"]) != [f"histogram_{snr:.6f}.txt" for snr in (10.0, 12.5, 15.0)]:
+        raise AssertionError(f"histogram files: {list(texts['sequential'])}")
+    if texts["sequential"] != texts["folded"]:
+        raise AssertionError("histogram: folded and sequential files differ")
+    blocks = c.range.maximum_block_number
+    for name, text in texts["folded"].items():
+        rows = [[float(v) for v in line.split()] for line in text.decode().splitlines()]
+        if len(rows) != blocks or any(len(r) != 4 or r[0] != min(r) for r in rows):
+            raise AssertionError(f"{name}: {len(rows)} rows, not {blocks} rotated 4-metric rows")
+    log("harness histogram: sweep 2 at 10, 12.5, 15 dB, 2048 blocks each: folded files "
+        "byte-identical to the sequential ones, 2048 rows each, minimum first")
+
+
+def harness_kmeans_dump(dev: torch.device) -> None:
+    """(d) The k-means dump on sweep 2 at 18 dB, 4 blocks: four files, the
+    clusters the constellation times hHats[0] (rtol 1e-5), idx the
+    nearest-cluster assignment."""
+    import numpy as np
+    from scipy.io import loadmat
+
+    from kmldpc_torch.detect.kmeans_cuda import kmeans_estimate
+    from kmldpc_torch.sim import Simulator
+    from kmldpc_torch.utils import SimLogger
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "km")
+        c = _sweep_cfg("sweep2_blind_16qam.toml", range=dict(maximum_block_number=1024),
+                       tpu=dict(snr_fold=0, kmeans_dump_dir=d, kmeans_dump_blocks=4))
+        sim = Simulator(c, SimLogger(log_dir=None, stdout=False), device=dev)
+        kmeans_estimate.launches = 0
+        sim.run_snr_point(18.0)
+        files = sorted(os.listdir(d))
+        if files != [f"kmeans_snr18.000_blk{j}.mat" for j in range(4)]:
+            raise AssertionError(f"k-means dump files: {files}")
+        worst = 0.0
+        for name in files:
+            m = loadmat(os.path.join(d, name))
+            y, cl, const, h_hats = (np.asarray(m[k]).ravel()
+                                    for k in ("data", "cluster", "constellations", "hHats"))
+            np.testing.assert_allclose(cl, const * h_hats[0], rtol=1e-5, atol=1e-6)
+            idx = np.asarray(m["idx"]).ravel()
+            np.testing.assert_array_equal(idx, (np.abs(y[:, None] - cl[None, :]) ** 2).argmin(1))
+            worst = max(worst, float(np.abs(cl - const * h_hats[0]).max()))
+    if kmeans_estimate.launches <= 0:
+        raise AssertionError("the k-means dump did not run K1")
+    log(f"harness k-means dump: 4 files at 18 dB, clusters = constellation x hHats[0] "
+        f"(max |diff| {worst:.3g}), idx the nearest clusters; K1 launches "
+        f"{kmeans_estimate.launches}")
+
+
+def harness_debug_blocks(dev: torch.device) -> None:
+    """(e) debug_blocks on sweep 2 cut to two points of 1024 blocks: the
+    folded per-block lines equal the sequential ones."""
+    from kmldpc_torch.sim import Simulator
+    from kmldpc_torch.utils import SimLogger
+
+    pat = re.compile(r"(Generated H = .*|Current Block Number = .*|Hhat = .*|hatIndex = .*)$")
+    lines = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, fold in (("sequential", 0), ("folded", 8)):
+            c = _sweep_cfg("sweep2_blind_16qam.toml",
+                           range=dict(maximum_snr=12.5, maximum_block_number=1024),
+                           tpu=dict(snr_fold=fold, debug_blocks=3))
+            logger = SimLogger(log_dir=os.path.join(tmp, mode), stdout=False)
+            Simulator(c, logger, device=dev).simulate()
+            logger.close()
+            with open(logger._path) as f:
+                lines[mode] = [m.group(1) for m in map(pat.search, f.read().splitlines()) if m]
+    if len(lines["sequential"]) != 2 * 3 * 7 or lines["sequential"] != lines["folded"]:
+        raise AssertionError(f"debug lines: {len(lines['sequential'])} sequential, "
+                             f"{len(lines['folded'])} folded, equal "
+                             f"{lines['sequential'] == lines['folded']}")
+    log(f"harness debug_blocks: {len(lines['folded'])} folded lines == sequential; first "
+        f"{lines['folded'][0]!r}")
+
+
+def harness_llr(dev: torch.device) -> None:
+    """(f) The card's demapped LLRs against a float64 Bayes demap, beside
+    the CPU's, on the sweep 3b (known h, 12 dB) and sweep 7 (blind, the
+    selection's winner, 14 dB) shapes at B = 1024 from the port's front
+    end."""
+    import numpy as np
+
+    from kmldpc_torch import constants
+    from kmldpc_torch.ops.modem import ModemTables, make_soft_demapper
+
+    for toml, snr, seed in (("sweep3b_known_5g16qam_minsum.toml", 12.0, 21),
+                            ("sweep7_blind_5g_soft_minsum.toml", 14.0, 22)):
+        spec, params, var, front = _sweep_point(toml, dev, snr, 1024, seed)
+        _, yr, yi, hr, hi = front
+        if not spec.known_h:
+            from kmldpc_torch.sim.chain import build_backend_fn
+
+            # histogram mode: the selection's metrics and candidates, no decode
+            dbg = build_backend_fn(dataclasses.replace(spec, debug_blocks=1, histogram=True),
+                                   1024, dev)(params, *front, var)
+            win = dbg.metrics.argmin(dim=1)
+            rows = torch.arange(1024, device=dev)
+            hr, hi = dbg.debug[2][rows, win], dbg.debug[3][rows, win]
+        tables = ModemTables.from_constellation(spec.constellation, dev)
+        card = make_soft_demapper(tables)(yr, yi, hr, hi, var)[1].cpu().numpy()
+        cpu = make_soft_demapper(ModemTables.from_constellation(spec.constellation))(
+            *(t.cpu() for t in (yr, yi, hr, hi)), var.cpu())[1].numpy()
+        y = yr.double().cpu().numpy() + 1j * yi.double().cpu().numpy()
+        h = hr.double().cpu().numpy() + 1j * hi.double().cpu().numpy()
+        d2 = np.abs(y[:, :, None] - h[:, None, None] * spec.constellation.points) ** 2
+        logits = -d2 / float(var)
+        p = np.exp(logits - logits.max(axis=-1, keepdims=True))
+        p = np.clip(p / p.sum(axis=-1, keepdims=True), constants.SMALLEST_PROB,
+                    1 - constants.SMALLEST_PROB)
+        mask0 = spec.constellation.bit0_mask().astype(np.float64)
+        ref = np.clip((np.log(p @ mask0) - np.log(p @ (1 - mask0))).reshape(1024, -1),
+                      -constants.LLR_CLIP, constants.LLR_CLIP)
+        e_card, e_cpu = np.abs(card - ref), np.abs(cpu - ref)
+        log(f"harness LLR vs float64, {toml.split('_')[0]} at {snr:g} dB, B=1024: card max "
+            f"{e_card.max():.4g} mean {e_card.mean():.4g}; CPU max {e_cpu.max():.4g} mean "
+            f"{e_cpu.mean():.4g}; card == CPU on {np.mean(card == cpu):.4f} of the LLRs")
+        if not (e_card.max() <= LLR_MARGIN * e_cpu.max() and
+                e_card.mean() <= LLR_MARGIN * e_cpu.mean()):
+            raise AssertionError(f"{toml}: the card's LLRs are further from float64 than "
+                                 f"{LLR_MARGIN} x the CPU's")
+
+
+def harness_library_ops(dev: torch.device) -> None:
+    """(g) The edge-major reference decoder on sweep 1's 5 dB LLRs at
+    B = 1024, card against CPU (block errors, convergence and the converged
+    codewords' bits equal, as the slot-major core's card tests ask) and
+    against the slot-major core on the card; the uniform-prior demap
+    against the soft demap on the card."""
+    from kmldpc_torch.decoder import DecoderTables, flooding_decode, flooding_decode_em
+    from kmldpc_torch.ops.modem import ModemTables, make_prior_demapper, make_soft_demapper
+
+    spec, params, var, front = _sweep_point("sweep1_known_qpsk.toml", dev, 5.0, 1024, 23)
+    llr = _known_h_llr(spec, front, var)
+    card = flooding_decode(params.dec, llr, spec.max_iter)
+    t0 = time.monotonic()
+    cpu = flooding_decode(DecoderTables.from_code(spec.code), llr.cpu(), spec.max_iter)
+    cpu_s = time.monotonic() - t0
+    core = flooding_decode_em(params.dec, llr, spec.max_iter)
+    conv = cpu.converged
+    same_conv = torch.equal(card.converged.cpu(), conv) and torch.equal(core.converged, card.converged)
+    same_bits = torch.equal(card.uu_hat.cpu()[conv], cpu.uu_hat[conv])
+    differ = int((card.uu_hat.cpu() != cpu.uu_hat).sum())
+    ms = _time_ms(lambda: flooding_decode(params.dec, llr, spec.max_iter), 3)
+    log(f"harness edge-major decoder, sweep 1 at 5 dB, B=1024: {int(conv.sum())} converged on "
+        f"card and CPU (same: {same_conv}), converged bits equal: {same_bits}, differing bits "
+        f"on unconverged codewords {differ}; card {ms:.3f} ms (CUDA events, mean of 3), CPU "
+        f"{cpu_s:.3f} s")
+    if not (same_conv and same_bits):
+        raise AssertionError("edge-major decoder: card and CPU disagree on converged codewords")
+    _, yr, yi, hr, hi = front
+    tables = ModemTables.from_constellation(spec.constellation, dev)
+    p0_u, llr_u = make_soft_demapper(tables)(yr, yi, hr, hi, var)
+    prior = torch.full_like(p0_u, 0.5)
+    p0_p, llr_p = make_prior_demapper(tables)(yr, yi, hr, hi, var, prior)
+    torch.testing.assert_close(p0_p, p0_u, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(llr_p, llr_u, rtol=1e-4, atol=1e-4)
+    log(f"harness prior demap, uniform priors, on the card: equal to the soft demap "
+        f"(max |LLR diff| {float((llr_p - llr_u).abs().max()):.3g})")
+
+
+def phase_harness(dev: torch.device) -> tuple[int, list[dict]]:
+    """The harness knobs on the card, (a) to (g); returns the fast stack's
+    folded K1 launches and counters."""
+    t0 = time.monotonic()
+    fast = harness_fast_stack(dev)
+    harness_resume(dev)
+    harness_histogram(dev)
+    harness_kmeans_dump(dev)
+    harness_debug_blocks(dev)
+    harness_llr(dev)
+    harness_library_ops(dev)
+    log(f"harness phase: {time.monotonic() - t0:.3f} s")
+    return fast
+
+
+def phase_profile_dir(dev: torch.device) -> None:
+    """(h) [tpu] profile_dir: one point of sweep 1 under torch.profiler; a
+    trace file with device events must exist."""
+    from kmldpc_torch.sim import Simulator
+    from kmldpc_torch.utils import SimLogger
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "prof")
+        c = _sweep_cfg("sweep1_known_qpsk.toml", range=dict(maximum_snr=5.0,
+                                                             maximum_block_number=1024),
+                       tpu=dict(snr_fold=0, profile_dir=d))
+        Simulator(c, SimLogger(log_dir=None, stdout=False), device=dev).simulate()
+        traces = os.listdir(d)
+        with open(os.path.join(d, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"profile_dir: {traces[0]}, {len(events)} events, {len(kernels)} device kernels")
+    if len(traces) != 1 or not kernels:
+        raise AssertionError(f"profile_dir: traces {traces}, {len(kernels)} kernels")
+
+
+def write_counts(counts: dict, directory: str) -> None:
+    """One file a parity run, in the format of benchmarks/parity/ours_*.json."""
+    os.makedirs(directory, exist_ok=True)
+    for name, points in counts.items():
+        with open(os.path.join(directory, name.replace(" ", "_").replace("-", "_") + ".json"),
+                  "w") as f:
+            json.dump(points, f, indent=1)
+            f.write("\n")
+    log(f"wrote {len(counts)} count files to {directory}")
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--counts-dir", default=None,
+                        help="also write each parity run's counters there, one JSON file a run")
+    args = parser.parse_args(argv)
+    t_start = time.monotonic()
     card, smi = phase_device()
     sys.path.insert(0, HERE)
     dev = torch.device("cuda", 0)
@@ -574,11 +1011,16 @@ def main() -> int:
     phase_build()
     k1 = phase_k1(dev, fp32_ops_per_s())
     launches = phase_main_path(card, dev)
-    phase_parity(dev)
+    counts = phase_parity(dev)
+    fast_launches, counts["fast stack"] = phase_harness(dev)
     phase_layered(dev)
     phase_bf16(dev)
     phase_profile(dev)
+    phase_profile_dir(dev)
+    if args.counts_dir:
+        write_counts(counts, args.counts_dir)
     qpsk = k1["times"]["PEG2304 2bits_QPSK.txt"]
+    log(f"K1 launches: main path {launches}, fast stack (folded) {fast_launches}")
     kernels = {"kernels": [{
         "name": "K1 blind k-means gain estimate",
         "route": "cuda",
@@ -595,6 +1037,7 @@ def main() -> int:
         "early_exit_ms": qpsk["early_exit_ms"],
         "by_table": k1["times"],
     }]}
+    log(f"chip_smoke: {time.monotonic() - t_start:.3f} s")
     log(f"card: {smi}")
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {

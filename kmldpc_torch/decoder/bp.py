@@ -11,7 +11,10 @@ exactly as the JAX package builds them:
 * degree-class (irregular codes: the 5G BG2 code): columns and rows sorted
   by degree, each degree class owning a contiguous span of one flat
   ``[E, B]`` message array, so no slot is padding (``perm_cf_c2r`` and
-  ``row_col_cf``).
+  ``row_col_cf``);
+* edge-major (``flooding_decode``, the JAX package's reference decoder):
+  messages ``[B, E]`` in column-sorted edge order, gathered per column
+  (``col_edge_idx``) and per row (``row_edge_idx``) with a zero pad edge.
 
 5G codes puncture their first ``punct = 2Z`` columns: they carry LLR 0.
 """
@@ -19,11 +22,12 @@ exactly as the JAX package builds them:
 from __future__ import annotations
 
 import dataclasses
-from typing import ClassVar, NamedTuple
+from typing import Callable, ClassVar, NamedTuple
 
 import numpy as np
 import torch
 
+from .. import constants
 from ..code.ldpc import LDPCCode
 
 # Guard for phi(0) = inf.  Must stay >= ~1e-6: below that exp(-x) rounds to
@@ -53,7 +57,8 @@ class DecodeResult(NamedTuple):
 
 
 _INDEX_FIELDS = ("perm_sm_c2r", "row_edge_col", "col_sort", "col_unsort", "row_unsort",
-                 "perm_cf_c2r", "row_col_cf")
+                 "perm_cf_c2r", "row_col_cf", "edge_col", "col_edge_idx", "row_edge_idx",
+                 "edge_rowslot")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,12 +87,18 @@ class DecoderTables:
     row_unsort: torch.Tensor  # [num_row] — row -> sorted position
     perm_cf_c2r: torch.Tensor  # [E] — class column-flat position -> row-flat position
     row_col_cf: torch.Tensor  # [E] — class row-flat position -> sorted column
+    # edge-major layout (edges column-sorted)
+    edge_col: torch.Tensor  # [E] — column of each edge
+    col_edge_idx: torch.Tensor  # [num_col, dc_max] — edges of each column, E = pad
+    row_edge_idx: torch.Tensor  # [num_row, dr_max] — edges of each row, E = pad
+    row_mask: torch.Tensor  # [num_row, dr_max] f32 — 1 where a real edge
+    edge_rowslot: torch.Tensor  # [E] — flat (row, slot) position of each edge
 
     # the host values a DecoderTables is built from, named as the fields of
     # the JAX package's DecoderTables
     HOST_FIELDS: ClassVar[tuple[str, ...]] = (
         "num_col", "num_row", "num_edges", "code_dim", "punct", "is_5g", "info_start",
-        "dc", "dr", "col_classes", "row_classes", *_INDEX_FIELDS,
+        "dc", "dr", "col_classes", "row_classes", *_INDEX_FIELDS, "row_mask",
     )
 
     @property
@@ -110,6 +121,11 @@ class DecoderTables:
             dr=code.dr_max if regular else 0,
             perm_sm_c2r=slot_major_perm(code),
             row_edge_col=code.row_edge_col,
+            edge_col=code.edge_col,
+            col_edge_idx=code.col_edge_idx,
+            row_edge_idx=code.row_edge_idx,
+            row_mask=code.row_mask,
+            edge_rowslot=code.edge_rowslot,
             **class_tables(code),
         )
 
@@ -138,6 +154,8 @@ class DecoderTables:
             **classes,
             **idx,
             row_col_sm=idx["row_edge_col"].T.reshape(-1).contiguous(),
+            row_mask=torch.tensor(np.asarray(host["row_mask"]).astype(np.float32),
+                                  device=device),
         )
 
 
@@ -217,3 +235,94 @@ def count_failed_checks(t: DecoderTables, bits: torch.Tensor) -> torch.Tensor:
     per_row = bits_pad[:, t.row_edge_col]  # [B, num_row, dr]
     parity = per_row.sum(dim=-1, dtype=torch.int32) % 2
     return parity.sum(dim=-1, dtype=torch.int32)
+
+
+def _sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last (slot) axis, left to right, as XLA's reduction
+    adds a row's few slots."""
+    acc = x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k]
+    return acc
+
+
+def flooding_decode(t: DecoderTables, chan_llr: torch.Tensor, iter_count: int) -> DecodeResult:
+    """Edge-major flooding sum-product decode of [B, tx_len] channel LLRs
+    log(P0/P1) (the JAX package's reference ``flooding_decode``, with its
+    operation order).
+
+    Per iteration: variable nodes sum their column's messages onto the
+    channel LLR (posterior, hard decision ``post <= 0``), the frozen hard
+    words are checked, then check nodes apply the phi rule with
+    self-exclusion; a codeword's decisions, messages and soft syndrome
+    freeze at the iteration its syndrome first passes, and the loop ends
+    when every codeword has converged or after ``iter_count`` iterations.
+    """
+    llr_clip = float(constants.LLR_CLIP)
+    b = chan_llr.shape[0]
+    dev = chan_llr.device
+    llr_col = channel_llr_to_columns(t, chan_llr.to(torch.float32))
+    row_real = t.row_mask > 0
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([x, torch.zeros((b, 1), dtype=x.dtype, device=dev)], dim=1)
+
+    def vn_pass(c2v: torch.Tensor):
+        post = llr_col + _sum_last(pad(c2v)[:, t.col_edge_idx])  # [B, num_col]
+        v2c = post[:, t.edge_col] - c2v
+        # the reference decides bit 0 iff alpha0 > alpha1, i.e. LLR > 0
+        return v2c, (post <= 0).to(torch.int8)
+
+    def syndrome_ok(hard: torch.Tensor) -> torch.Tensor:
+        per_row = pad(hard.to(torch.int32))[:, t.row_edge_col]
+        return (per_row.sum(dim=-1) % 2 == 0).all(dim=-1)
+
+    def cn_pass(v2c: torch.Tensor):
+        per_row = pad(v2c)[:, t.row_edge_idx]  # [B, num_row, dr_max]
+        sign = torch.where(per_row < 0, -1.0, 1.0)
+        sign = torch.where(row_real, sign, 1.0)
+        mag = torch.clamp(per_row.abs(), min=PHI_ARG_MIN)
+        ph = torch.where(row_real, phi(mag), 0.0)
+        phi_sum = _sum_last(ph)  # [B, num_row]
+        sign_prod = sign.prod(dim=-1)
+        excl_phi = torch.clamp(phi_sum[:, :, None] - ph, min=constants.SMALLEST_PROB)
+        excl_sign = sign_prod[:, :, None] * sign
+        c2v_row = excl_sign * torch.clamp(phi(excl_phi), max=llr_clip)
+        c2v_new = c2v_row.reshape(b, -1)[:, t.edge_rowslot]
+        # soft syndrome: P(row XOR = 0) = (1 + prod tanh(v2c/2)) / 2
+        return c2v_new, 0.5 * (1.0 + sign_prod * torch.exp(-phi_sum))
+
+    c2v = torch.zeros((b, t.num_edges), dtype=torch.float32, device=dev)
+    cc_hat = torch.zeros((b, t.num_col), dtype=torch.int8, device=dev)
+    conv = torch.zeros((b,), dtype=torch.bool, device=dev)
+    iters = torch.zeros((b,), dtype=torch.int32, device=dev)
+    ss = torch.ones((b, t.num_row), dtype=torch.float32, device=dev)
+    for _ in range(iter_count):
+        if bool(conv.all()):
+            break
+        v2c, hard = vn_pass(c2v)
+        cc_hat = torch.where(conv[:, None], cc_hat, hard)
+        ok = syndrome_ok(cc_hat)
+        iters = iters + (~conv).to(torch.int32)
+        conv_after = conv | ok
+        c2v_new, ss_new = cn_pass(v2c)
+        # the reference skips the check update once converged (break before it)
+        c2v = torch.where(conv_after[:, None], c2v, c2v_new)
+        ss = torch.where(conv_after[:, None], ss, ss_new)
+        conv = conv_after
+    uu_hat = cc_hat[:, t.info_start : t.info_start + t.code_dim]
+    return DecodeResult(uu_hat, cc_hat, conv, iters, ss)
+
+
+def make_flooding_decoder(
+    code: LDPCCode, device: torch.device | str = "cpu"
+) -> Callable[[torch.Tensor, int], DecodeResult]:
+    """``decode(chan_llr, iter_count) -> DecodeResult``: the edge-major
+    decoder bound to one code's tables on ``device``."""
+    t = DecoderTables.from_code(code, device)
+
+    def decode(chan_llr: torch.Tensor, iter_count: int) -> DecodeResult:
+        return flooding_decode(t, chan_llr, iter_count)
+
+    decode.tables = t  # type: ignore[attr-defined]
+    return decode

@@ -106,3 +106,29 @@ def make_blind_estimator(
         return expand_candidates(*blind_estimate(yr, yi, tables, iters, anchor))
 
     return estimate
+
+
+def add_diagnostics(estimate: Callable, tables: ModemTables) -> Callable:
+    """Wrap a blind estimator with the k-means inspection surface
+    (``KMeans::{clusters, idx}`` after ``Run``, dumped by
+    ``KMeans::DumpToMat``).
+
+    The clusters are the constellation scaled by the final ĥ (candidate 0),
+    and the assignments one first-minimum pass against them, so both follow
+    from the estimate; the wrapper works over K1 and the plain version
+    alike.  Returns ``estimate_diag(yr, yi) -> (h4_r, h4_i, cl_r, cl_i,
+    idx)`` with ``cl_*`` [B, M] and ``idx`` [B, Nsym] int32.
+    """
+    sr, si = tables.points_re, tables.points_im
+
+    def estimate_diag(yr: torch.Tensor, yi: torch.Tensor):
+        h4_r, h4_i = estimate(yr, yi)
+        h_r, h_i = h4_r[:, 0], h4_i[:, 0]
+        cl_r = h_r[:, None] * sr[None, :] - h_i[:, None] * si[None, :]
+        cl_i = h_r[:, None] * si[None, :] + h_i[:, None] * sr[None, :]
+        dre = yr[:, :, None] - cl_r[:, None, :]
+        dim = yi[:, :, None] - cl_i[:, None, :]
+        idx = torch.argmin(dre * dre + dim * dim, dim=-1).to(torch.int32)
+        return h4_r, h4_i, cl_r, cl_i, idx
+
+    return estimate_diag

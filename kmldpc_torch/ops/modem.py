@@ -9,7 +9,10 @@ and returns both P(bit=0) and the LLR ``log(p0) - log(p1)``.
 
 The bit marginalisation is a masked sum over the M points in float32
 elementwise arithmetic, not a matmul: a TF32 product on the card would
-keep only about three digits of p0 and p1.
+keep only about three digits of p0 and p1.  The prior-in demapper
+(``make_prior_demapper``) and the per-segment one
+(``make_partition_demapper``) complete the reference's demapping API; the
+simulation chain uses neither.
 """
 
 from __future__ import annotations
@@ -75,6 +78,22 @@ def make_mapper(
     return map_bits
 
 
+def _symbol_probs(tables: ModemTables, yr, yi, hr, hi, var) -> torch.Tensor:
+    """Max-normalised symbol likelihoods clipped into [1e-12, 1-1e-12]:
+    [B, Nsym, M] (modemlinearsystem.cc:51-77)."""
+    pr, pi = tables.points_re, tables.points_im
+    var = torch.as_tensor(var, dtype=torch.float32, device=yr.device)
+    hs_re = hr[:, None] * pr[None, :] - hi[:, None] * pi[None, :]
+    hs_im = hr[:, None] * pi[None, :] + hi[:, None] * pr[None, :]
+    dre = yr[:, :, None] - hs_re[:, None, :]
+    dim = yi[:, :, None] - hs_im[:, None, :]
+    logits = -(dre * dre + dim * dim) / var
+    logits = logits - logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits)
+    p = p / p.sum(dim=-1, keepdim=True)
+    return p.clamp(constants.SMALLEST_PROB, 1.0 - constants.SMALLEST_PROB)
+
+
 def make_soft_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """Returns ``demap(yr, yi, hr, hi, var) -> (bit_p0, chan_llr)``.
 
@@ -88,21 +107,11 @@ def make_soft_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor,
     clip_hi = 1.0 - constants.SMALLEST_PROB
     mask0 = tables.bit0_mask  # [M, m]
     mask1 = 1.0 - mask0
-    pr, pi = tables.points_re, tables.points_im
 
     def demap(yr, yi, hr, hi, var):
         b, nsym = yr.shape
-        var = torch.as_tensor(var, dtype=torch.float32, device=yr.device)
-        hs_re = hr[:, None] * pr[None, :] - hi[:, None] * pi[None, :]
-        hs_im = hr[:, None] * pi[None, :] + hi[:, None] * pr[None, :]
-        dre = yr[:, :, None] - hs_re[:, None, :]
-        dim = yi[:, :, None] - hs_im[:, None, :]
-        logits = -(dre * dre + dim * dim) / var  # [B, Nsym, M]
-        logits = logits - logits.amax(dim=-1, keepdim=True)
-        p = torch.exp(logits)
-        p = p / p.sum(dim=-1, keepdim=True)
         # the reference clips symbol probabilities before marginalising
-        p = p.clamp(clip_lo, clip_hi)
+        p = _symbol_probs(tables, yr, yi, hr, hi, var)
         # bit marginalisation as masked sums over the M points: [B, Nsym, m]
         p0 = (p[..., :, None] * mask0).sum(dim=-2)
         p1 = (p[..., :, None] * mask1).sum(dim=-2)
@@ -115,3 +124,70 @@ def make_soft_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor,
         return bit_p0, chan_llr
 
     return demap
+
+
+def make_prior_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+    """Prior-in / extrinsic-out soft demapper, the whole ``Modem::DeMapping``
+    (modem.cc:23-79), for iterative demodulation.
+
+    Returns ``demap(yr, yi, hr, hi, var, bit_p0_in) -> (bit_p0_out,
+    ext_llr)``; ``bit_p0_in`` [B, Nsym*m] is the decoder's extrinsic
+    P(bit=0).  The symbol prior is the product of its bits' priors
+    (modem.cc:34-45), the posterior prior x likelihood normalised
+    (:47-57), and the output the bit posterior with the prior divided back
+    out (:59-73), clipped.  With uniform priors this is
+    :func:`make_soft_demapper`.  1 - 1e-12 is not a float32, so the prior
+    and its complement are clipped separately.  The log-prior and the bit
+    marginals are masked sums over the bits and the points, as in the
+    soft demapper.
+    """
+    m = tables.bits_per_symbol
+    clip_lo = constants.SMALLEST_PROB
+    clip_hi = 1.0 - constants.SMALLEST_PROB
+    mask0 = tables.bit0_mask  # [M, m]
+    mask1 = 1.0 - mask0
+
+    def demap(yr, yi, hr, hi, var, bit_p0_in):
+        b, nsym = yr.shape
+        p = _symbol_probs(tables, yr, yi, hr, hi, var)
+        pin = bit_p0_in.reshape(b, nsym, m)
+        pin0 = pin.clamp(clip_lo, clip_hi)
+        pin1 = (1.0 - pin).clamp(clip_lo, clip_hi)
+        # symbol log-prior: [B, Nsym, M]
+        log_prior = (torch.log(pin0)[..., None, :] * mask0).sum(dim=-1) + (
+            torch.log(pin1)[..., None, :] * mask1).sum(dim=-1)
+        post = p * torch.exp(log_prior - log_prior.amax(dim=-1, keepdim=True))
+        post = post / post.sum(dim=-1, keepdim=True)
+        p0 = (post[..., :, None] * mask0).sum(dim=-2)
+        p1 = (post[..., :, None] * mask1).sum(dim=-2)
+        e0 = p0 / pin0  # extrinsic: divide the prior back out
+        e1 = p1 / pin1
+        bit_p0_out = (e0 / (e0 + e1)).clamp(clip_lo, clip_hi).reshape(b, nsym * m)
+        ext_llr = (torch.log(e0) - torch.log(e1)).reshape(b, nsym * m).clamp(
+            -constants.LLR_CLIP, constants.LLR_CLIP
+        )
+        return bit_p0_out, ext_llr
+
+    return demap
+
+
+def make_partition_demapper(tables: ModemTables, num_parts: int):
+    """Soft demapper for one gain per segment (``thetaList``,
+    modemlinearsystem.cc:80-90): symbol j of segment p is demapped against
+    h_p.  hr/hi: [B, num_parts].  With ``num_parts == 1`` this is
+    :func:`make_soft_demapper`.
+    """
+    demap = make_soft_demapper(tables)
+    m = tables.bits_per_symbol
+
+    def demap_parts(yr, yi, hr, hi, var):
+        b, nsym = yr.shape
+        if nsym % num_parts != 0:
+            raise ValueError(f"{nsym} symbols not divisible into {num_parts} parts")
+        seg = nsym // num_parts
+        # fold the segments into the batch: [B, P, seg] -> [B*P, seg]
+        p0, llr = demap(yr.reshape(b * num_parts, seg), yi.reshape(b * num_parts, seg),
+                        hr.reshape(b * num_parts), hi.reshape(b * num_parts), var)
+        return p0.reshape(b, nsym * m), llr.reshape(b, nsym * m)
+
+    return demap_parts

@@ -39,3 +39,12 @@ def random_bits(
 ) -> torch.Tensor:
     """iid uniform bits as int8 of the given shape."""
     return torch.randint(0, 2, shape, generator=gen, device=device, dtype=torch.int8)
+
+
+def random_symbols(
+    gen: torch.Generator, qary: int, shape: tuple[int, ...], device: torch.device | str
+) -> torch.Tensor:
+    """iid uniform q-ary symbols in [0, qary) as int32 (reference
+    ``SourceSink::GetSymStr``, sourcesink.cc:12-19: the same distribution
+    as its rejection loop, drawn directly)."""
+    return torch.randint(0, qary, shape, generator=gen, device=device, dtype=torch.int32)

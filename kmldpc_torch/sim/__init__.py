@@ -5,5 +5,6 @@ from .chain import (  # noqa: F401
     build_chain_fn,
     build_frontend_fn,
     make_chunk_runner,
+    make_multi_point_runner,
 )
 from .montecarlo import Simulator, SnrResult  # noqa: F401

@@ -10,10 +10,11 @@ It is split into a random front end (bits to channel outputs, drawn from one
 ``backend(params, uu, yr, yi, hr_true, hi_true, var) -> ChunkResult``, so a
 test can inject the JAX package's channel outputs into the port's back end.
 Known-h runs the same back end without detection.  PyTorch runs eagerly;
-the harness (montecarlo.py) calls the chain once per sub-chunk.  Each layer
-runs under a ``record_function`` label (frontend, kmeans, metric, demap,
-decode, counters), so a ``torch.profiler`` trace splits the chain's time
-by layer.
+the harness (montecarlo.py) calls the chain once per sub-chunk, and the
+multi-point runner runs several whole launches (one per SNR point) per
+call.  Each layer runs under a ``record_function`` label (frontend,
+kmeans, metric, demap, decode, counters), so a ``torch.profiler`` trace
+splits the chain's time by layer.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from ..code.ldpc import LDPCCode
 from ..config import Config
 from ..decoder.bp_em import flooding_decode_em, two_phase_generic
 from ..decoder.minsum import layered_minsum_decode
-from ..detect.kmeans import make_blind_estimator
+from ..detect.kmeans import add_diagnostics, make_blind_estimator
 from ..detect.kmeans_cuda import make_blind_estimator_cuda
 from ..detect.metric import complement_closed, make_ambiguity_selector
 from ..io.constellation import Constellation
@@ -59,6 +60,15 @@ class ChunkResult(NamedTuple):
     err_bit_sq: torch.Tensor  # 0-d f32: sum over blocks of (bit errors)^2
     metrics: torch.Tensor  # [B, 4] f32 |metric| table; zeros if known-h
     iters: torch.Tensor  # 0-d f32: mean BP iterations executed
+    # k-means inspection surface, (yr, yi, cl_r, cl_i, idx, h4_r, h4_i,
+    # hr_true, hi_true) when ChainSpec.kmeans_dump is set (blind only), else
+    # (); the harness writes it with utils.records.dump_kmeans
+    kmeans_diag: tuple = ()
+    # per-block debug surface (ChainSpec.debug_blocks > 0): (hr_true,
+    # hi_true), plus (h4_r, h4_i) when blind; else ()
+    debug: tuple = ()
+    # the final decode's per-codeword DecodeResult; () in histogram mode
+    raw: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,17 +105,17 @@ class ChainSpec:
     # skip the -ĥ / -jĥ candidates where they tie +ĥ / +jĥ exactly
     # (detect/metric.py complement_closed)
     metric_prune: bool = False
+    # histogram mode: keep the metric table, skip the final decode
+    histogram: bool = False
+    # surface the k-means clusters and assignments (blind only)
+    kmeans_dump: bool = False
+    # surface true h and the ĥ candidates for the harness's per-block lines
+    debug_blocks: int = 0
 
     @staticmethod
     def from_config(cfg: Config, code: LDPCCode, constellation: Constellation) -> "ChainSpec":
         """Spec of ``cfg``; raises NotImplementedError for unported knobs."""
         tpu = cfg.tpu
-        if cfg.histogram.enable:
-            raise unported("[histogram] enable", "snr_fold, checkpoints, histogram, dumps")
-        if tpu.kmeans_dump_dir:
-            raise unported("[tpu] kmeans_dump_dir", "snr_fold, checkpoints, histogram, dumps")
-        if tpu.debug_blocks:
-            raise unported("[tpu] debug_blocks", "snr_fold, checkpoints, histogram, dumps")
         if tpu.model_parallel > 1:
             raise unported("[tpu] model_parallel", "multi-device")
         if tpu.data_parallel > 1:
@@ -127,6 +137,9 @@ class ChainSpec:
             dtype=tpu.dtype,
             metric_schedule=tpu.metric_schedule,
             metric_prune=tpu.metric_prune,
+            histogram=cfg.histogram.enable,
+            kmeans_dump=bool(tpu.kmeans_dump_dir) and not cfg.decoder.true_h_arg,
+            debug_blocks=tpu.debug_blocks,
         )
 
 
@@ -171,6 +184,8 @@ def build_backend_fn(
         estimate = make_blind_estimator(tables, spec.kmeans_iters, spec.kmeans_anchor)
     else:
         raise ValueError(f"unknown kmeans_impl {spec.kmeans_impl!r}")
+    if spec.kmeans_dump:
+        estimate = add_diagnostics(estimate, tables)
     if spec.schedule not in ("flooding", "layered-minsum", "flooding-minsum"):
         raise ValueError(f"unknown schedule {spec.schedule!r}")
     if spec.dtype not in ("float32", "bfloat16"):
@@ -178,6 +193,11 @@ def build_backend_fn(
     msg_dtype = torch.float32 if spec.dtype == "float32" else torch.bfloat16
     if spec.metric_schedule not in ("flooding", "match"):
         raise ValueError(f"unknown metric_schedule {spec.metric_schedule!r}")
+    if spec.metric_prune and spec.histogram:
+        raise ValueError(
+            "metric_prune is incompatible with histogram mode (the "
+            "metric table would carry duplicated pairs)"
+        )
     if spec.metric_prune and not complement_closed(code, spec.constellation):
         raise ValueError(
             "metric_prune requires a complement-closed constellation "
@@ -197,7 +217,7 @@ def build_backend_fn(
         return flooding_decode_em(tabs, llr, it, cn_rule, spec.minsum_alpha, msg_dtype)
 
     select = None
-    if not spec.known_h:
+    if not spec.known_h or spec.histogram:
         # "match" decodes the metric with the final schedule, in float32
         select = make_ambiguity_selector(
             code, tables, spec.metric_type, spec.metric_iter,
@@ -208,23 +228,44 @@ def build_backend_fn(
     def backend(params: ChainParams, uu, yr, yi, hr_true, hi_true, var) -> ChunkResult:
         var = torch.as_tensor(var, dtype=torch.float32, device=yr.device)
         tabs = params.ms if layered else params.dec
+        sel_tabs = tabs if match else params.dec
+        kmeans_diag = debug = raw = ()
         if spec.known_h:
-            metrics = torch.zeros((batch, 4), dtype=torch.float32, device=yr.device)
-            with record_function("demap"):
-                _, chan_llr = demap(yr, yi, hr_true, hi_true, var)
+            if spec.histogram:
+                # one metric per block, over the single candidate true h;
+                # columns 1-3 are NaN, dropped by the histogram writer
+                with record_function("metric"):
+                    h1_r = torch.stack([hr_true] * 4, dim=1)
+                    h1_i = torch.stack([hi_true] * 4, dim=1)
+                    _, _, m4, _ = select(sel_tabs, yr, yi, h1_r, h1_i, var)
+                    nan = torch.full((batch, 3), float("nan"), device=yr.device)
+                    metrics = torch.cat([m4[:, :1], nan], dim=1)
+            else:
+                metrics = torch.zeros((batch, 4), dtype=torch.float32, device=yr.device)
+                with record_function("demap"):
+                    _, chan_llr = demap(yr, yi, hr_true, hi_true, var)
         else:
             with record_function("kmeans"):
-                h4_r, h4_i = estimate(yr, yi)
+                h4_r, h4_i, *diag = estimate(yr, yi)
+            if diag:
+                kmeans_diag = (yr, yi, *diag, h4_r, h4_i, hr_true, hi_true)
             with record_function("metric"):
-                _, _, metrics, chan_llr = select(
-                    tabs if match else params.dec, yr, yi, h4_r, h4_i, var)
-        with record_function("decode"):
-            res = two_phase_generic(
-                lambda llr, it: batch_decode(tabs, llr, it, msg_dtype),
-                chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters, tile=tile,
-            )
+                _, _, metrics, chan_llr = select(sel_tabs, yr, yi, h4_r, h4_i, var)
+        if spec.debug_blocks > 0:
+            debug = (hr_true, hi_true) if spec.known_h else (hr_true, hi_true, h4_r, h4_i)
+        if spec.histogram:
+            # histogram mode skips the final decode: only the metrics matter
+            uu_hat = torch.zeros_like(uu)
+            iters = torch.zeros((), dtype=torch.float32, device=yr.device)
+        else:
+            with record_function("decode"):
+                raw = two_phase_generic(
+                    lambda llr, it: batch_decode(tabs, llr, it, msg_dtype),
+                    chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters, tile=tile,
+                )
+            uu_hat, iters = raw.uu_hat, raw.iters.to(torch.float32).mean()
         with record_function("counters"):
-            errs = (uu != res.uu_hat).sum(dim=1, dtype=torch.int32)  # [B]
+            errs = (uu != uu_hat).sum(dim=1, dtype=torch.int32)  # [B]
             errs_f = errs.to(torch.float32)
             return ChunkResult(
                 err_bit=errs.sum(),
@@ -233,7 +274,10 @@ def build_backend_fn(
                 tot_blk=batch,
                 err_bit_sq=(errs_f * errs_f).sum(),
                 metrics=metrics,
-                iters=res.iters.to(torch.float32).mean(),
+                iters=iters,
+                kmeans_diag=kmeans_diag,
+                debug=debug,
+                raw=raw,
             )
 
     return backend
@@ -252,6 +296,44 @@ def build_chain_fn(
     return chain
 
 
+def _concat(rs: list[ChunkResult]) -> ChunkResult:
+    """One launch's result from its sub-chunks' results: counters summed,
+    per-block tensors concatenated, iterations averaged."""
+    def cat(parts):
+        if not parts[0]:
+            return ()
+        cols = [torch.cat(col) for col in zip(*parts)]
+        return type(parts[0])(*cols) if hasattr(parts[0], "_fields") else tuple(cols)
+
+    return ChunkResult(
+        err_bit=sum(r.err_bit for r in rs),
+        err_blk=sum(r.err_blk for r in rs),
+        tot_bit=sum(r.tot_bit for r in rs),
+        tot_blk=sum(r.tot_blk for r in rs),
+        err_bit_sq=sum(r.err_bit_sq for r in rs),
+        metrics=torch.cat([r.metrics for r in rs]),
+        iters=torch.stack([r.iters for r in rs]).mean(),
+        kmeans_diag=cat([r.kmeans_diag for r in rs]),
+        debug=cat([r.debug for r in rs]),
+        raw=cat([r.raw for r in rs]),
+    )
+
+
+def _stack(rs: list[ChunkResult]) -> ChunkResult:
+    """Launch results stacked on a new leading [m] axis, field by field."""
+    def stack(vals):
+        if isinstance(vals[0], tuple):
+            if not vals[0]:
+                return ()
+            cols = [stack(list(col)) for col in zip(*vals)]
+            return type(vals[0])(*cols) if hasattr(vals[0], "_fields") else tuple(cols)
+        if torch.is_tensor(vals[0]):
+            return torch.stack(vals)
+        return torch.tensor(vals)
+
+    return ChunkResult(*(stack(list(col)) for col in zip(*rs)))
+
+
 def make_chunk_runner(
     spec: ChainSpec,
     batch: int,
@@ -264,7 +346,9 @@ def make_chunk_runner(
 
     Sub-chunk ``sub`` of launch ``launch`` at ``snr`` draws from a generator
     seeded with ``chunk_seed(seed, snr, launch, sub)``; the counters of the
-    sub-chunks are summed, metrics stacked to [n*batch, 4], iters averaged.
+    sub-chunks are summed, per-block tensors (metrics, the k-means and debug
+    surfaces, the decode results) concatenated to [n*batch, ...], iters
+    averaged.
     """
     n = max(1, chunks_per_launch)
     params = make_chain_params(spec.code, device, spec.schedule)
@@ -276,18 +360,39 @@ def make_chunk_runner(
             chain(params, make_generator(chunk_seed(seed, snr, launch, sub), device), var_t)
             for sub in range(n)
         ]
-        if n == 1:
-            return rs[0]
-        return ChunkResult(
-            err_bit=sum(r.err_bit for r in rs),
-            err_blk=sum(r.err_blk for r in rs),
-            tot_bit=sum(r.tot_bit for r in rs),
-            tot_blk=sum(r.tot_blk for r in rs),
-            err_bit_sq=sum(r.err_bit_sq for r in rs),
-            metrics=torch.cat([r.metrics for r in rs]),
-            iters=torch.stack([r.iters for r in rs]).mean(),
-        )
+        return rs[0] if n == 1 else _concat(rs)
 
     run_launch.params = params  # type: ignore[attr-defined]
     run_launch.blocks_per_launch = n * batch  # type: ignore[attr-defined]
     return run_launch
+
+
+def make_multi_point_runner(
+    spec: ChainSpec,
+    batch: int,
+    chunks_per_launch: int = 1,
+    m: int = 2,
+    device: torch.device | str = "cpu",
+    seed: int = 0,
+) -> Callable[[list[tuple[float, int]], list[float]], ChunkResult]:
+    """``run_launches(points, vars) -> ChunkResult`` advancing ``m`` whole
+    launches per call, one slot each: ``points[j] = (snr_j, launch_j)``
+    with noise variance ``vars[j]``.
+
+    Every field of the result has a leading [m] axis.  Slot j runs exactly
+    the launch that ``make_chunk_runner(...)(snr_j, launch_j, vars[j])``
+    runs, from the same ``chunk_seed`` generators, so it is bitwise that
+    sequential launch.  The slots run one after the other (the JAX
+    package's ``lax.scan`` over slots), on one shared ``ChainParams``.
+    """
+    launch = make_chunk_runner(spec, batch, chunks_per_launch, device, seed)
+
+    def run_launches(points: list[tuple[float, int]], vars_: list[float]) -> ChunkResult:
+        if len(points) != m or len(vars_) != m:
+            raise ValueError(f"expected {m} slots, got {len(points)} points, {len(vars_)} vars")
+        return _stack([launch(snr, n, float(v)) for (snr, n), v in zip(points, vars_)])
+
+    run_launches.params = launch.params  # type: ignore[attr-defined]
+    run_launches.blocks_per_launch = launch.blocks_per_launch  # type: ignore[attr-defined]
+    run_launches.num_slots = m  # type: ignore[attr-defined]
+    return run_launches

@@ -1,20 +1,36 @@
-"""Monte-Carlo harness: SNR sweep, stopping rules, reference-format lines
-(port of the sequential path of ``kmldpc_tpu/sim/montecarlo.py``).
+"""Monte-Carlo harness: SNR sweep, stopping rules, telemetry, checkpointing
+(port of ``kmldpc_tpu/sim/montecarlo.py``).
 
-SNR points run one after the other.  Within a point, launches of
-``chunks_per_launch x batch`` codewords are issued until
-``tot_blk >= maximum_block_number`` or ``err_blk >= maximum_error_number``
-(simulator.cc:117).  As in the JAX harness, launch L+1 is issued before
-launch L's counters are read, and the check counts that in-flight launch
-toward the block cap: a block-capped sweep counts exactly as many blocks
-as the JAX package, and the error cap can overrun by one launch.
+* Within an SNR point, launches of ``chunks_per_launch x batch`` codewords
+  are issued until ``tot_blk >= maximum_block_number`` or
+  ``err_blk >= maximum_error_number`` (simulator.cc:117).  As in the JAX
+  harness, launch L+1 is issued before launch L's counters are read, and
+  the check counts that in-flight launch toward the block cap: a
+  block-capped sweep counts exactly as many blocks as the JAX package, and
+  the error cap can overrun by one launch.
+* ``[tpu] snr_fold > 1`` folds whole launches of several live SNR points
+  into one dispatch of the multi-point runner (``_simulate_folded``).  Each
+  slot is a sequential launch from the same seeds, so a block-capped sweep
+  gives bitwise the sequential counters.
+* Counters are checkpointed to JSON after every consumed launch.  Every
+  sub-chunk draws from ``chunk_seed(seed, snr, launch, sub)``, so a resumed
+  sweep re-issues the lost in-flight launch under its own seed and lands on
+  bitwise the counters of an uninterrupted one.
+* Histogram mode, k-means dumps, per-block debug lines and a
+  ``torch.profiler`` trace (``profile_dir``) as in the JAX harness.  One
+  guard the JAX harness lacks: histogram mode refuses to resume a point
+  that has consumed launches, since reopening ``histogram_<snr>.txt`` would
+  lose their rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 
+import numpy as np
 import torch
 
 from ..code.ldpc import load_code
@@ -22,7 +38,7 @@ from ..config import Config
 from ..device import resolve_device
 from ..io.constellation import parse_constellation
 from ..utils.logging import SimLogger
-from .chain import ChainSpec, ChunkResult, make_chunk_runner, unported
+from .chain import ChainSpec, ChunkResult, make_chunk_runner, make_multi_point_runner
 
 
 @dataclasses.dataclass
@@ -56,6 +72,26 @@ class _Counters:
     def fer(self) -> float:
         return self.err_blk / self.tot_blk if self.tot_blk else 0.0
 
+    @staticmethod
+    def from_saved(saved: dict) -> "_Counters":
+        """Rebuild from one checkpoint point-state dict."""
+        return _Counters(
+            **{k: saved[k] for k in
+               ("tot_blk", "err_blk", "err_bit", "tot_bit", "chunks")},
+            err_bit_sq=saved.get("err_bit_sq", 0.0),
+        )
+
+    def state(self, done: bool) -> dict:
+        """The checkpoint point-state dict, with the JAX harness's keys."""
+        return dict(tot_blk=self.tot_blk, err_blk=self.err_blk, err_bit=self.err_bit,
+                    tot_bit=self.tot_bit, chunks=self.chunks, done=done,
+                    err_bit_sq=self.err_bit_sq)
+
+
+def _np(a) -> np.ndarray:
+    """A tensor (on any device) or a number as a NumPy array."""
+    return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
 
 class Simulator:
     """Config-driven sweep runner on one device."""
@@ -65,13 +101,9 @@ class Simulator:
         cfg: Config,
         logger: SimLogger | None = None,
         device: torch.device | str = "cuda",
+        runner_factory=None,
     ) -> None:
         tpu = cfg.tpu
-        extras = "snr_fold, checkpoints, histogram, dumps"
-        if tpu.checkpoint_path:
-            raise unported("[tpu] checkpoint_path", extras)
-        if tpu.profile_dir:
-            raise unported("[tpu] profile_dir", extras)
         self.cfg = cfg
         self.log = logger or SimLogger(log_dir=None)
         self.device = resolve_device(device)
@@ -90,7 +122,24 @@ class Simulator:
         self.batch = max(1, min(batch, cfg.range.maximum_block_number))
         cpl = max(1, min(tpu.chunks_per_launch,
                          -(-cfg.range.maximum_block_number // self.batch)))
-        self.runner = make_chunk_runner(self.spec, self.batch, cpl, self.device, tpu.seed)
+        self.snr_fold = 0
+        if tpu.snr_fold > 1 and self.spec.kmeans_dump:
+            # a first-launch-only .mat export gains nothing from folding
+            # (model_parallel, the message's other knob, is refused earlier)
+            raise ValueError(
+                "[tpu].snr_fold is incompatible with kmeans_dump_dir and "
+                "model_parallel (use the sequential path for those)"
+            )
+        if runner_factory is not None:
+            self.runner = runner_factory(self.spec, self.batch)
+        elif tpu.snr_fold > 1:
+            self.snr_fold = max(1, min(tpu.snr_fold, len(cfg.snr_points())))
+            self.runner = make_multi_point_runner(
+                self.spec, self.batch, cpl, self.snr_fold, self.device, tpu.seed
+            )
+            self.log.info(f"SNR-fold: {self.snr_fold} launch slots per dispatch")
+        else:
+            self.runner = make_chunk_runner(self.spec, self.batch, cpl, self.device, tpu.seed)
         self.log.info(
             f"[{cfg.range.minimum_snr:.3f},{cfg.range.step_snr:.3f},{cfg.range.maximum_snr:.3f}]"
         )
@@ -104,15 +153,73 @@ class Simulator:
             if self.device.type == "cuda" else "cpu"
         )
         self.log.info(f"Device: {self.device} ({name}), batch {self.batch} x {cpl} per launch")
-        if tpu.snr_fold > 1:
-            # the per-point counters are identical either way (the JAX
-            # package pins its folded path to the sequential one)
-            self.log.info(
-                f"[tpu] snr_fold = {tpu.snr_fold}: SNR points run sequentially "
-                "in kmldpc_torch"
-            )
 
-    def run_snr_point(self, snr: float, counters: _Counters | None = None) -> SnrResult:
+    # -- checkpointing ------------------------------------------------------
+    def _ckpt_path(self) -> str:
+        return self.cfg.tpu.checkpoint_path
+
+    def _save_ckpt(self, state: dict) -> None:
+        path = self._ckpt_path()
+        if not path:
+            return
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, path)
+
+    def _load_ckpt(self) -> dict:
+        path = self._ckpt_path()
+        if path and os.path.exists(path):
+            with open(path) as f:
+                state = json.load(f)
+            if state.get("fingerprint") == self._fingerprint():
+                self._refuse_histogram_resume(state)
+                return state
+            self.log.info("Checkpoint fingerprint mismatch; starting fresh.")
+        return {"fingerprint": self._fingerprint(), "snr": {}}
+
+    def _refuse_histogram_resume(self, state: dict) -> None:
+        """Histogram files are opened anew on every run, so resuming a point
+        that has consumed launches would lose their rows."""
+        if not self.cfg.histogram.enable:
+            return
+        for snr in self.cfg.snr_points():
+            saved = state["snr"].get(f"{snr:.3f}")
+            if saved and not saved.get("done") and saved["chunks"] > 0:
+                raise ValueError(
+                    f"[histogram] enable cannot resume SNR {snr:.3f} from "
+                    f"[tpu] checkpoint_path {self._ckpt_path()!r}: "
+                    f"histogram_{snr:.6f}.txt would lose the rows of its "
+                    f"{saved['chunks']} consumed launches; remove the "
+                    "checkpoint or turn one of the two knobs off"
+                )
+
+    def _fingerprint(self) -> str:
+        c = self.cfg
+        # The package, the device type, the seed and the runner topology are
+        # part of the fingerprint: CPU and CUDA generators draw different
+        # streams from one seed, as do the JAX package's keys, so a
+        # checkpoint written under another of them must start fresh (with a
+        # log line), never mix streams.
+        topology = (
+            f"kmldpc_torch|{self.device.type}|{c.tpu.seed}|{c.tpu.data_parallel}|"
+            f"{c.tpu.snr_fold}|{c.tpu.model_parallel}|{c.tpu.chunks_per_launch}"
+        )
+        return (
+            f"{c.ldpc.matrix_file}|{c.modem.modem_file}|{c.ldpc.max_iter}|"
+            f"{c.decoder.true_h_arg}|{c.xcodec.ldpc_5g}|{c.xcodec.metric_type}|"
+            f"{c.xcodec.metric_iter}|{c.range.maximum_block_number}|"
+            f"{c.range.maximum_error_number}|{self.batch}|{topology}"
+        )
+
+    # -- main loop ----------------------------------------------------------
+    def run_snr_point(
+        self,
+        snr: float,
+        counters: _Counters | None = None,
+        histogram_file=None,
+        save_partial=None,
+    ) -> SnrResult:
         cfg = self.cfg
         var = 10.0 ** (-0.1 * snr)  # simulator.cc:74 — no rate normalisation
         c = counters or _Counters()
@@ -120,17 +227,27 @@ class Simulator:
         max_blk = cfg.range.maximum_block_number
         max_err = cfg.range.maximum_error_number
         last_print = c.tot_blk
+        km_dump_pending = bool(cfg.tpu.kmeans_dump_dir) and self.spec.kmeans_dump
+        debug_pending = self.spec.debug_blocks > 0
         device_of_counters = None
 
         def consume(res: ChunkResult) -> None:
-            nonlocal last_print, device_of_counters
+            nonlocal last_print, km_dump_pending, debug_pending, device_of_counters
             device_of_counters = res.err_bit.device
-            c.chunks += 1
+            if km_dump_pending and res.kmeans_diag:
+                self._dump_kmeans(snr, res)
+                km_dump_pending = False  # first launch of the point only
+            if debug_pending and res.debug:
+                self._log_debug_blocks(res, c.tot_blk)
+                debug_pending = False  # first launch of the point only
+            c.chunks += 1  # consumed launches: the checkpoint/resume cursor
             c.err_bit += int(res.err_bit)
             c.err_blk += int(res.err_blk)
             c.tot_bit += int(res.tot_bit)
             c.tot_blk += int(res.tot_blk)
             c.err_bit_sq += float(res.err_bit_sq)
+            if histogram_file is not None:
+                self._write_histogram(histogram_file, _np(res.metrics))
             self.log.info(
                 f"chunk {c.chunks}: mean BP iters = {float(res.iters):.2f}",
                 to_stdout=False,
@@ -138,8 +255,13 @@ class Simulator:
             if c.tot_blk - last_print >= 100 or c.tot_blk >= max_blk or c.err_blk >= max_err:
                 self._print_result(snr, c)
                 last_print = c.tot_blk
+            if save_partial is not None:
+                save_partial(c)
 
-        per_launch = self.runner.blocks_per_launch
+        # `launched` leads `c.chunks` (consumed) by the in-flight launch; a
+        # resume from c.chunks consumed launches re-issues the lost
+        # in-flight launch under its own seeds
+        per_launch = getattr(self.runner, "blocks_per_launch", self.batch)
         launched = c.chunks
         pending: ChunkResult | None = None
         while (
@@ -168,6 +290,80 @@ class Simulator:
             err_bit_sq=c.err_bit_sq,
         )
 
+    def _dump_kmeans(self, snr: float, res: ChunkResult) -> None:
+        """Write per-block k-means diagnostics (KMeans::DumpToMat parity,
+        kmeans.cc:96-111): received symbols, final clusters, per-symbol
+        assignments, constellation, the 4 ĥ candidates and the true h, under
+        the reference's variable names (records.dump_kmeans)."""
+        from ..utils.records import dump_kmeans
+
+        d = self.cfg.tpu.kmeans_dump_dir
+        os.makedirs(d, exist_ok=True)
+        yr, yi, cl_r, cl_i, idx, h4_r, h4_i, hr_t, hi_t = (_np(a) for a in res.kmeans_diag)
+        const = self.constellation.points
+        nb = min(self.cfg.tpu.kmeans_dump_blocks, yr.shape[0])
+        for j in range(nb):
+            dump_kmeans(
+                os.path.join(d, f"kmeans_snr{snr:.3f}_blk{j}"),
+                yr[j] + 1j * yi[j],
+                cl_r[j] + 1j * cl_i[j],
+                idx[j],
+                const,
+                h4_r[j] + 1j * h4_i[j],
+                complex(hr_t[j], hi_t[j]),
+            )
+        self.log.info(
+            f"k-means diagnostics: wrote {nb} blocks to {d}", to_stdout=False
+        )
+
+    def _log_debug_blocks(
+        self, res: ChunkResult, tot_before: int, slot: int | None = None
+    ) -> None:
+        """Per-block debug lines, log file only ([tpu].debug_blocks).
+
+        The reference's lines and formats: ``Generated H = (re,im)``
+        (simulator.cc:124-126, 6 significant digits), and in blind mode
+        ``Current Block Number = NNNNNNN`` (simulator.cc:149-152), one
+        ``Hhat = (re,im) Metric = v`` per candidate at precision 14 with the
+        metric before its absolute value (kmcodec.cc:132-140: soft metrics
+        are log-sums <= 0, so -|metric| there), and ``hatIndex = k``
+        (kmcodec.cc:64).
+
+        ``slot`` selects one launch slot of a folded dispatch (the
+        ChunkResult fields carry a leading [m] axis there); None for the
+        sequential path's result.
+        """
+        sel = (lambda a: _np(a)[slot]) if slot is not None else _np
+        nblk = int(sel(res.tot_blk))
+        n = min(self.spec.debug_blocks, nblk)
+        hr_t = sel(res.debug[0])
+        hi_t = sel(res.debug[1])
+        blind = len(res.debug) > 2
+        if blind:
+            h4_r = sel(res.debug[2])
+            h4_i = sel(res.debug[3])
+            metrics = sel(res.metrics)
+            pre = -metrics if self.spec.metric_type else metrics
+        for j in range(min(n, hr_t.shape[0])):
+            self.log.info(
+                f"Generated H = ({hr_t[j]:g},{hi_t[j]:g})", to_stdout=False
+            )
+            if not blind:
+                continue
+            self.log.info(
+                f"Current Block Number = {tot_before + j + 1:07d}",
+                to_stdout=False,
+            )
+            for k in range(4):
+                self.log.info(
+                    f"Hhat = ({h4_r[j, k]:.14f},{h4_i[j, k]:.14f}) "
+                    f"Metric = {pre[j, k]:.14f}",
+                    to_stdout=False,
+                )
+            self.log.info(
+                f"hatIndex = {int(np.argmin(metrics[j]))}", to_stdout=False
+            )
+
     def _print_result(self, snr: float, c: _Counters) -> None:
         # sourcesink.cc:49-65 format
         self.log.info(
@@ -175,6 +371,19 @@ class Simulator:
             f"Error blk = {c.err_blk:7d} Error bit = {c.err_bit:7d} "
             f"BER = {c.ber:.14f} FER = {c.fer:.14f}"
         )
+
+    @staticmethod
+    def _write_histogram(f, metrics: np.ndarray) -> None:
+        """Rotated metric rows: minimum first (simulator.cc:154-163).
+
+        NaN columns mark absent candidates (known-h mode has a single
+        candidate) and are dropped, like the reference's 1-element rows.
+        """
+        for row in metrics:
+            row = row[np.isfinite(row)]
+            k = int(row.argmin()) if row.size else 0
+            rolled = np.roll(row, -k)
+            f.write(" ".join(f"{v:g}" for v in rolled) + " \n")
 
     def _print_tables(self, results: list[SnrResult]) -> None:
         # final tables (simulator.cc:43-66)
@@ -186,6 +395,242 @@ class Simulator:
             self.log.info(f"{r.snr:.3f} {r.fer:.14f}")
 
     def simulate(self) -> list[SnrResult]:
-        results = [self.run_snr_point(snr) for snr in self.cfg.snr_points()]
+        body = self._simulate_folded if self.snr_fold else self._simulate
+        d = self.cfg.tpu.profile_dir
+        if not d:
+            return body()
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            results = body()
+        os.makedirs(d, exist_ok=True)
+        stamp = time.strftime("%Y-%m-%d-%H-%M-%S")
+        path = os.path.join(d, f"{stamp}-{os.getpid()}-kmldpc_torch.trace.json")
+        prof.export_chrome_trace(path)
+        self.log.info(f"Profiler trace: {path}", to_stdout=False)
+        return results
+
+    def _simulate_folded(self) -> list[SnrResult]:
+        """Concurrent SNR points: one dispatch carries ``snr_fold`` whole
+        launches round-robined over the LIVE points.
+
+        Each slot is exactly one sequential-path launch (same seeds, same
+        chain), so a block-capped sweep gives bitwise the sequential
+        per-point counters; the error cap sees counters that lag by the
+        in-flight slots.  Dead slots pad the last dispatches to ``snr_fold``
+        slots; their results are discarded, so each point's launch sequence
+        is the sequential one.
+        """
+        cfg = self.cfg
+        state = self._load_ckpt()
+        m = self.snr_fold
+        per_launch = self.runner.blocks_per_launch
+        max_blk = cfg.range.maximum_block_number
+        max_err = cfg.range.maximum_error_number
+        t0 = time.monotonic()
+
+        points = cfg.snr_points()
+        cs: dict[float, _Counters] = {}
+        done: dict[float, bool] = {}
+        launched: dict[float, int] = {}
+        inflight: dict[float, int] = {}
+        last_print: dict[float, int] = {}
+        blk0: dict[float, int] = {}  # blocks already done before this run
+        # per-point wall attribution: each consume's wall delta is split
+        # evenly over the dispatch's valid slots, so the per-point wall_s sum
+        # to the run's compute span; t_mark advances at every consume
+        wall_attr: dict[float, float] = {}
+        t_mark = t0
+        # per-point histogram files, demuxed from the slot axis, opened on
+        # the point's first consumed slot
+        hist_files: dict[float, object] = {}
+        debug_pending: dict[float, bool] = {}
+        for snr in points:
+            saved = state["snr"].get(f"{snr:.3f}")
+            c = _Counters.from_saved(saved) if saved else _Counters()
+            cs[snr] = c
+            blk0[snr] = c.tot_blk
+            done[snr] = bool(saved and saved.get("done"))
+            launched[snr] = c.chunks
+            inflight[snr] = 0
+            last_print[snr] = c.tot_blk
+            wall_attr[snr] = 0.0
+            debug_pending[snr] = self.spec.debug_blocks > 0
+            if saved and not done[snr]:
+                self.log.info(
+                    f"SNR {snr:.3f}: resuming mid-point from checkpoint "
+                    f"({c.tot_blk} blocks done)"
+                )
+
+        def wants(snr: float) -> bool:
+            c = cs[snr]
+            return (
+                not done[snr]
+                and c.tot_blk + per_launch * inflight[snr] < max_blk
+                and c.err_blk < max_err
+            )
+
+        def save_point(snr: float) -> None:
+            state["snr"][f"{snr:.3f}"] = cs[snr].state(done[snr])
+
+        def consume(dispatch) -> None:
+            nonlocal t_mark
+            slots, res = dispatch
+            err_bit, err_blk, tot_bit, tot_blk, err_sq, iters = (
+                _np(a) for a in (res.err_bit, res.err_blk, res.tot_bit, res.tot_blk,
+                                 res.err_bit_sq, res.iters))
+            now = time.monotonic()
+            n_valid = sum(1 for _, v in slots if v)
+            dt_slot = (now - t_mark) / n_valid if n_valid else 0.0
+            t_mark = now
+            for j, (snr, valid) in enumerate(slots):
+                if not valid:
+                    # dead padding slot: discarded; it never incremented
+                    # inflight, so it must not decrement it either (that
+                    # re-opened capped points through wants() and made the
+                    # dispatch loop run away)
+                    continue
+                inflight[snr] -= 1
+                wall_attr[snr] += dt_slot
+                c = cs[snr]
+                c.chunks += 1
+                c.err_bit += int(err_bit[j])
+                c.err_blk += int(err_blk[j])
+                c.tot_bit += int(tot_bit[j])
+                c.tot_blk += int(tot_blk[j])
+                c.err_bit_sq += float(err_sq[j])
+                if cfg.histogram.enable:
+                    f = hist_files.get(snr)
+                    if f is None:
+                        f = hist_files[snr] = open(f"histogram_{snr:.6f}.txt", "w")
+                    self._write_histogram(f, _np(res.metrics[j]))
+                if debug_pending[snr] and res.debug:
+                    # first consumed launch of the point only, like the
+                    # sequential path
+                    self._log_debug_blocks(res, c.tot_blk - int(tot_blk[j]), slot=j)
+                    debug_pending[snr] = False
+                self.log.info(
+                    f"chunk {c.chunks} [snr {snr:.3f}]: "
+                    f"mean BP iters = {float(iters[j]):.2f}",
+                    to_stdout=False,
+                )
+                if (c.tot_blk - last_print[snr] >= 100 or c.tot_blk >= max_blk
+                        or c.err_blk >= max_err):
+                    self._print_result(snr, c)
+                    last_print[snr] = c.tot_blk
+                if self._ckpt_path():
+                    save_point(snr)
+            if self._ckpt_path():
+                self._save_ckpt(state)
+
+        rr = 0  # round-robin cursor over points
+        pending: list = []
+        try:
+            while True:
+                # the next dispatch: m slots round-robined over the points
+                # that still want a launch (a point may take several slots,
+                # consecutive launch indices, when few points remain)
+                slots: list[tuple[float, bool]] = []
+                launches: list[tuple[float, int]] = []
+                vars_: list[float] = []
+                while len(slots) < m and any(wants(p) for p in points):
+                    snr = points[rr % len(points)]
+                    rr += 1
+                    if not wants(snr):
+                        continue
+                    slots.append((snr, True))
+                    launches.append((snr, launched[snr]))
+                    vars_.append(10.0 ** (-0.1 * snr))
+                    launched[snr] += 1
+                    inflight[snr] += 1
+                if not slots:
+                    if pending:
+                        consume(pending.pop(0))
+                        continue
+                    break
+                while len(slots) < m:  # dead padding, discarded on consume
+                    slots.append((slots[0][0], False))
+                    launches.append(launches[0])
+                    vars_.append(vars_[0])
+                res = self.runner(launches, vars_)
+                pending.append((slots, res))
+                if len(pending) > 1:  # double-buffered: consume the older one
+                    consume(pending.pop(0))
+        finally:
+            # histogram files keep the consumed launches of an interrupted sweep
+            for f in hist_files.values():
+                f.close()
+
+        # each consume charged its wall delta to the slots it carried, so the
+        # per-point wall_s sum to the run's compute span (t0 to the last
+        # consume); points restored whole from the checkpoint report 0/0
+        results: list[SnrResult] = []
+        for snr in points:
+            c = cs[snr]
+            restored = done[snr]
+            done[snr] = True
+            save_point(snr)
+            self._print_result(snr, c)
+            w = 0.0 if restored else wall_attr[snr]
+            bps = 0.0 if w <= 0 else (c.tot_blk - blk0[snr]) / w
+            self.log.info(
+                f"SNR = {snr:.3f} done: {c.tot_blk - blk0[snr]} blocks in {w:.6f} s of "
+                f"attributed wall = {bps:.1f} blocks/s, counters on {self.device.type}"
+            )
+            results.append(SnrResult(
+                snr=snr, ber=c.ber, fer=c.fer, tot_blk=c.tot_blk,
+                err_blk=c.err_blk, err_bit=c.err_bit, tot_bit=c.tot_bit,
+                wall_s=w, blocks_per_s=bps, err_bit_sq=c.err_bit_sq,
+            ))
+        if self._ckpt_path():
+            self._save_ckpt(state)
+        self._print_tables(results)
+        return results
+
+    def _simulate(self) -> list[SnrResult]:
+        cfg = self.cfg
+        state = self._load_ckpt()
+        results: list[SnrResult] = []
+        for snr in cfg.snr_points():
+            snr_key = f"{snr:.3f}"
+            saved = state["snr"].get(snr_key)
+            if saved and saved.get("done"):
+                c = _Counters.from_saved(saved)
+                self.log.info(f"SNR {snr_key}: restored from checkpoint")
+                results.append(SnrResult(
+                    snr=snr, ber=c.ber, fer=c.fer, tot_blk=c.tot_blk,
+                    err_blk=c.err_blk, err_bit=c.err_bit, tot_bit=c.tot_bit,
+                    wall_s=0.0, blocks_per_s=0.0, err_bit_sq=c.err_bit_sq,
+                ))
+                continue
+            c = _Counters.from_saved(saved) if saved else _Counters()
+            if saved:
+                self.log.info(
+                    f"SNR {snr_key}: resuming mid-point from checkpoint "
+                    f"({c.tot_blk} blocks done)"
+                )
+
+            def save_partial(cc, _snr_key=snr_key):
+                # at most the one in-flight launch is lost on interruption
+                state["snr"][_snr_key] = cc.state(done=False)
+                self._save_ckpt(state)
+
+            hist_f = None
+            if cfg.histogram.enable:
+                hist_f = open(f"histogram_{snr:.6f}.txt", "w")
+            try:
+                r = self.run_snr_point(
+                    snr, c, hist_f,
+                    save_partial=save_partial if self._ckpt_path() else None,
+                )
+            finally:
+                if hist_f is not None:
+                    hist_f.close()
+            results.append(r)
+            state["snr"][snr_key] = c.state(done=True)
+            self._save_ckpt(state)
         self._print_tables(results)
         return results

@@ -139,12 +139,23 @@ def test_chunk_runner_deterministic_and_folded(assets):
     one = make_chunk_runner(spec, 8, 1, "cpu", seed=3)
     two = make_chunk_runner(spec, 4, 2, "cpu", seed=3)
     a, b = one(12.5, 5, 10 ** -1.25), one(12.5, 5, 10 ** -1.25)
-    assert all(torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
+    assert _same(a, b) and len(a.raw.uu_hat) == 8
     c = one(12.5, 6, 10 ** -1.25)
     assert not torch.equal(a.metrics, c.metrics)
     f = two(12.5, 5, 10 ** -1.25)
     assert f.tot_blk == 8 and f.metrics.shape == (8, 4)
+    assert f.raw.uu_hat.shape == (8, spec.code.code_dim) and f.raw.converged.shape == (8,)
     assert two.blocks_per_launch == 8
+
+
+def _same(x, y) -> bool:
+    """Bitwise equality of two results, field by field (tensors, numbers,
+    tuples of them)."""
+    if torch.is_tensor(x):
+        return torch.equal(x, y)
+    if isinstance(x, tuple):
+        return len(x) == len(y) and all(_same(a, b) for a, b in zip(x, y))
+    return x == y
 
 
 ALL_TABLES = [

@@ -9,6 +9,7 @@ This file imports no jax, so it also runs on a machine without it:
 """
 
 import pathlib
+import types
 
 import numpy as np
 import pytest
@@ -33,6 +34,25 @@ RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py's tolerance
 SWEEPS = pathlib.Path(__file__).resolve().parent.parent / "benchmarks" / "parity" / "configs"
 
 pytestmark = pytest.mark.cuda
+
+
+def llr_float64(yr, yi, hr, hi, var, points, bit0_mask) -> np.ndarray:
+    """Bayes demap in float64 NumPy, the reference's semantics: symbol
+    likelihoods exp(-|y - h s|^2 / var) normalised and clipped to
+    [1e-12, 1 - 1e-12], marginalised to bits, LLR log(p0) - log(p1)
+    clipped to ±LLR_CLIP.  yr/yi [B, Nsym], hr/hi [B]; returns [B, Nsym*m]."""
+    from kmldpc_torch import constants
+
+    y = np.asarray(yr, np.float64) + 1j * np.asarray(yi, np.float64)
+    h = np.asarray(hr, np.float64) + 1j * np.asarray(hi, np.float64)
+    d2 = np.abs(y[:, :, None] - h[:, None, None] * np.asarray(points, np.complex128)) ** 2
+    logits = -d2 / np.float64(var)
+    p = np.exp(logits - logits.max(axis=-1, keepdims=True))
+    p = np.clip(p / p.sum(axis=-1, keepdims=True), constants.SMALLEST_PROB,
+                1 - constants.SMALLEST_PROB)
+    mask0 = np.asarray(bit0_mask, np.float64)
+    llr = np.log(p @ mask0) - np.log(p @ (1 - mask0))
+    return np.clip(llr.reshape(y.shape[0], -1), -constants.LLR_CLIP, constants.LLR_CLIP)
 
 
 @pytest.fixture
@@ -211,3 +231,186 @@ def test_layered_decoder_on_card_equals_cpu(assets, cuda, code_file, use_qc):
         assert torch.equal(getattr(card[0], f).cpu(), getattr(cpu, f)), f
     for a, b in zip(*card):
         assert torch.equal(a, b)
+
+
+def _cfg(assets, **over):
+    import dataclasses
+
+    cfg = load_config(str(assets / "config.toml"))
+    for section, kv in over.items():
+        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kv)})
+    return cfg
+
+
+def _counts(results):
+    return [(r.snr, r.tot_blk, r.err_blk, r.err_bit, r.tot_bit, r.err_bit_sq) for r in results]
+
+
+@pytest.mark.parametrize("known_h", [True, False], ids=["known-h", "blind"])
+def test_folded_sweep_on_card_equals_sequential(assets, cuda, known_h):
+    """On the card, a folded sweep (fold 3, K1 on the blind chain) gives
+    bitwise the sequential per-point counters."""
+    from kmldpc_torch.sim import Simulator
+    from kmldpc_torch.utils import SimLogger
+
+    common = dict(range=dict(minimum_snr=6.0, maximum_snr=14.0, step_snr=4.0,
+                             maximum_block_number=256, maximum_error_number=10**9),
+                  decoder=dict(true_h_arg=known_h))
+    runs = []
+    for fold in (0, 3):
+        before = kmeans_cuda.kmeans_estimate.launches
+        sim = Simulator(_cfg(assets, tpu=dict(batch=64, chunks_per_launch=2, snr_fold=fold),
+                             **common), SimLogger(log_dir=None, stdout=False), device=cuda)
+        runs.append(sim.simulate())
+        assert (kmeans_cuda.kmeans_estimate.launches > before) != known_h
+    assert _counts(runs[0]) == _counts(runs[1])
+
+
+def test_checkpoint_resume_on_card(assets, cuda, tmp_path):
+    """Killed mid-point on the card, a sweep resumes bitwise; a checkpoint
+    written on the CPU starts a CUDA run fresh (another generator stream)."""
+    from kmldpc_torch.sim import Simulator, make_chunk_runner
+    from kmldpc_torch.utils import SimLogger
+
+    def cfg(ck):
+        return _cfg(assets, range=dict(maximum_block_number=320, maximum_error_number=10**9,
+                                       minimum_snr=4.0, maximum_snr=4.0),
+                    decoder=dict(true_h_arg=True),
+                    tpu=dict(batch=64, chunks_per_launch=1, checkpoint_path=str(ck)))
+
+    class Killed(RuntimeError):
+        pass
+
+    calls = {"n": 0}
+
+    def factory(spec, batch):
+        real = make_chunk_runner(spec, batch, 1, cuda, 0)
+
+        def run(*args):
+            if calls["n"] == 3:
+                raise Killed()
+            calls["n"] += 1
+            return real(*args)
+
+        run.blocks_per_launch = batch
+        return run
+
+    quiet = SimLogger(log_dir=None, stdout=False)
+    with pytest.raises(Killed):
+        Simulator(cfg(tmp_path / "ck.json"), quiet, device=cuda, runner_factory=factory).simulate()
+    resumed = Simulator(cfg(tmp_path / "ck.json"), quiet, device=cuda).simulate()
+    control = Simulator(cfg(tmp_path / "ck2.json"), quiet, device=cuda).simulate()
+    assert _counts(resumed) == _counts(control)
+    Simulator(cfg(tmp_path / "cpu.json"), quiet, device="cpu").simulate()
+    lines = []
+    log = types.SimpleNamespace(info=lambda msg, to_stdout=True: lines.append(msg))
+    fresh = Simulator(cfg(tmp_path / "cpu.json"), log, device=cuda).simulate()
+    assert "Checkpoint fingerprint mismatch; starting fresh." in lines
+    assert _counts(fresh) == _counts(control)
+
+
+def test_histogram_and_kmeans_dump_on_card(assets, cuda, tmp_path, monkeypatch):
+    """Histogram files folded == sequential on the card, and the k-means dump
+    over K1: clusters = constellation x hHats[0], idx the nearest cluster."""
+    import os
+
+    from scipy.io import loadmat
+
+    from kmldpc_torch.sim import Simulator
+    from kmldpc_torch.utils import SimLogger
+
+    quiet = SimLogger(log_dir=None, stdout=False)
+    common = dict(range=dict(minimum_snr=16.0, maximum_snr=24.0, step_snr=4.0,
+                             maximum_block_number=128, maximum_error_number=10**9),
+                  decoder=dict(true_h_arg=False), histogram=dict(enable=True))
+    files = {}
+    for fold in (0, 2):
+        monkeypatch.chdir(tmp_path)
+        os.makedirs(str(fold))
+        monkeypatch.chdir(tmp_path / str(fold))
+        Simulator(_cfg(assets, tpu=dict(batch=64, snr_fold=fold), **common), quiet,
+                  device=cuda).simulate()
+        files[fold] = {f: open(f, "rb").read() for f in sorted(os.listdir("."))}
+    assert len(files[0]) == 3 and files[0] == files[2]
+    d = tmp_path / "km"
+    sim = Simulator(_cfg(assets, range=dict(maximum_block_number=64),
+                         decoder=dict(true_h_arg=False),
+                         tpu=dict(batch=64, kmeans_dump_dir=str(d), kmeans_dump_blocks=4)),
+                    quiet, device=cuda)
+    before = kmeans_cuda.kmeans_estimate.launches
+    sim.run_snr_point(18.0)
+    assert kmeans_cuda.kmeans_estimate.launches == before + 1
+    assert len(os.listdir(d)) == 4
+    for name in os.listdir(d):
+        m = loadmat(str(d / name))
+        y, cl, const, h_hats = (np.asarray(m[k]).ravel()
+                                for k in ("data", "cluster", "constellations", "hHats"))
+        np.testing.assert_allclose(cl, const * h_hats[0], rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(np.asarray(m["idx"]).ravel(),
+                                      (np.abs(y[:, None] - cl[None, :]) ** 2).argmin(axis=1))
+
+
+@pytest.mark.parametrize("sweep,snr_db", [("sweep3b_known_5g16qam_minsum.toml", 12.0),
+                                          ("sweep7_blind_5g_soft_minsum.toml", 14.0)],
+                         ids=["sweep3b", "sweep7"])
+def test_card_llrs_no_further_from_float64_than_cpu(cuda, sweep, snr_db):
+    """The demapped 16QAM LLRs on the card against a float64 Bayes demap:
+    no further than the CPU's, by tests/test_torch_rounding.py's margin
+    (1.10), on the sweep 3b (true h) and sweep 7 (the selection's winner)
+    shapes, B = 256, from the port's front end."""
+    import dataclasses
+
+    from kmldpc_torch.ops.modem import make_soft_demapper
+
+    cfg = load_config(str(SWEEPS / sweep))
+    code = load_code(cfg.matrix_path())
+    spec = ChainSpec.from_config(cfg, code, parse_constellation(cfg.modem_path()))
+    b = 256
+    var = torch.tensor(10 ** (-snr_db / 10), dtype=torch.float32)
+    params = make_chain_params(code, cuda, spec.schedule)
+    front = build_frontend_fn(spec, b, cuda)(params, make_generator(9, cuda), var.to(cuda))
+    _, yr, yi, hr, hi = front
+    if not spec.known_h:
+        sel = build_backend_fn(dataclasses.replace(spec, histogram=True, debug_blocks=1), b, cuda)(
+            params, *front, var.to(cuda))
+        win = sel.metrics.argmin(dim=1)
+        rows = torch.arange(b, device=cuda)
+        hr, hi = sel.debug[2][rows, win], sel.debug[3][rows, win]
+    const = spec.constellation
+    card = make_soft_demapper(ModemTables.from_constellation(const, cuda))(
+        yr, yi, hr, hi, var.to(cuda))[1].cpu().numpy()
+    host = [t.cpu() for t in (yr, yi, hr, hi)]
+    cpu = make_soft_demapper(ModemTables.from_constellation(const))(*host, var)[1].numpy()
+    ref = llr_float64(*(t.numpy() for t in host), var.numpy(), const.points, const.bit0_mask())
+    e_card, e_cpu = np.abs(card - ref), np.abs(cpu - ref)
+    assert e_card.max() <= 1.10 * e_cpu.max() and e_card.mean() <= 1.10 * e_cpu.mean()
+
+
+def test_edge_major_decoder_and_prior_demap_on_card(assets, cuda):
+    """The edge-major reference decoder on the card against the CPU (B = 256
+    at noise 2.6, where 140 codewords converge: convergence, iterations and
+    the converged codewords' bits equal), and the uniform-prior demap equal
+    to the soft demap."""
+    from kmldpc_torch.decoder import DecoderTables, flooding_decode
+    from kmldpc_torch.ops.modem import make_prior_demapper, make_soft_demapper
+
+    code = load_code(str(assets / "PEG2304regular0.5.txt"))
+    rng = np.random.default_rng(7)
+    uu = rng.integers(0, 2, size=(256, code.code_dim)).astype(np.uint8)
+    cc = np.stack([code.encode_reference(u) for u in uu])
+    llr = torch.from_numpy((3.0 * (1 - 2 * cc.astype(np.float64))
+                            + rng.normal(scale=2.6, size=cc.shape)).astype(np.float32))
+    cpu = flooding_decode(DecoderTables.from_code(code), llr, 50)
+    card = flooding_decode(DecoderTables.from_code(code, cuda), llr.to(cuda), 50)
+    conv = cpu.converged
+    assert 0 < int(conv.sum()) < 256
+    assert torch.equal(card.converged.cpu(), conv) and torch.equal(card.iters.cpu(), cpu.iters)
+    assert torch.equal(card.uu_hat.cpu()[conv], cpu.uu_hat[conv])
+    const = parse_constellation(str(assets / "4bit_16QAM_Gray.txt"))
+    tables = ModemTables.from_constellation(const, cuda)
+    yr, yi = (torch.from_numpy(a).to(cuda) for a in _rows(const, 64, 576, 8))
+    hr, hi = (torch.randn(64, generator=make_generator(8, cuda), device=cuda) for _ in range(2))
+    p0_u, llr_u = make_soft_demapper(tables)(yr, yi, hr, hi, 0.1)
+    p0_p, llr_p = make_prior_demapper(tables)(yr, yi, hr, hi, 0.1, torch.full_like(p0_u, 0.5))
+    torch.testing.assert_close(p0_p, p0_u, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(llr_p, llr_u, rtol=1e-4, atol=1e-4)

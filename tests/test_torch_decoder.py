@@ -1,6 +1,7 @@
 """kmldpc_torch flooding decoder against kmldpc_tpu's and the float64 oracle:
 the slot-major core (PEG2304), the degree-class core (5G BG2 K=960),
-both check rules, and the two-phase schedule."""
+both check rules, the two-phase schedule, and the edge-major reference
+decoder."""
 
 import jax
 import numpy as np
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from kmldpc_tpu.decoder.bp import DecoderTables as JaxDecoderTables
+from kmldpc_tpu.decoder.bp import flooding_decode as jax_flooding_decode
 from kmldpc_tpu.decoder.bp import phi as jax_phi
 from kmldpc_tpu.decoder import bp_em as jax_bp_em
 from kmldpc_tpu.decoder.bp_em import flooding_decode_em as jax_decode_em
@@ -17,7 +19,9 @@ from kmldpc_torch.code.gf2 import gf2_matvec
 from kmldpc_torch.decoder import (
     DecoderTables,
     count_failed_checks,
+    flooding_decode,
     flooding_decode_em,
+    make_flooding_decoder,
     phi,
     two_phase_generic,
 )
@@ -324,3 +328,64 @@ def test_class_core_unconverged_as_close_to_oracle_as_jax(g5, noise):
         cc_exp, conv_exp, _, _ = bp_decode_prob(g5, p0, 50)
         assert not conv_exp
         assert int((port[i] != cc_exp).sum()) <= int((jx[i] != cc_exp).sum())
+
+
+@pytest.mark.parametrize("code_fixture,noise", [("peg", 1.6), ("peg", 2.4), ("peg", 3.0),
+                                                ("g5", 1.6), ("g5", 2.0), ("g5", 2.4)])
+def test_edge_major_decode_matches_jax(request, code_fixture, noise):
+    """The edge-major reference decoder against the JAX package's jitted
+    flooding_decode on the same LLRs (B = 16): hard decisions, iterations
+    and convergence exactly equal, soft syndromes within rtol 1e-5 below
+    the waterfall, and the same hard outputs as the port's chain decoder
+    (slot-major or degree-class core).  The noise ranges are the cores'
+    tests': PEG2304 from all-converged to none-converged, 5G up to 2.4,
+    since 5G codewords that never converge follow the float32 rounding of
+    tanh and log in a few bits (test_class_core_unconverged_as_close_to_oracle_as_jax)."""
+    code = request.getfixturevalue(code_fixture)
+    llr = _noisy_llr(code, np.random.default_rng(int(noise * 10) + 1), 16, 3.0, noise)
+    ours = flooding_decode(DecoderTables.from_code(code), torch.from_numpy(llr), 50)
+    ref = jax.jit(jax_flooding_decode, static_argnums=2)(JaxDecoderTables.from_code(code),
+                                                         llr, 50)
+    for f in ("uu_hat", "cc_hat", "converged", "iters"):
+        np.testing.assert_array_equal(getattr(ours, f).numpy(), np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    assert ours.cc_hat.dtype == torch.int8 and ours.iters.dtype == torch.int32
+    if noise < 2.4:
+        np.testing.assert_allclose(ours.soft_syndrome.numpy(), np.asarray(ref.soft_syndrome),
+                                   rtol=1e-5, atol=0)
+    core = flooding_decode_em(DecoderTables.from_code(code), torch.from_numpy(llr), 50)
+    for f in ("uu_hat", "cc_hat", "converged", "iters"):
+        assert torch.equal(getattr(ours, f), getattr(core, f)), f
+
+
+def test_edge_major_matches_prob_domain_oracle(ham):
+    """The float64 oracle and tolerances of tests/test_decoder.py, through
+    make_flooding_decoder on Hamming(7,4)."""
+    rng = np.random.default_rng(0)
+    p0 = rng.uniform(0.05, 0.95, size=(40, ham.num_col))
+    pc = np.clip(p0, constants.SMALLEST_PROB, 1 - constants.SMALLEST_PROB)
+    res = make_flooding_decoder(ham)(torch.tensor(np.log(pc / (1 - pc)), dtype=torch.float32), 10)
+    for i in range(p0.shape[0]):
+        cc_exp, conv_exp, iters_exp, ss_exp = bp_decode_prob(ham, p0[i], 10)
+        np.testing.assert_array_equal(res.cc_hat[i].numpy(), cc_exp, err_msg=f"case {i}")
+        assert bool(res.converged[i]) == conv_exp, f"case {i}"
+        assert int(res.iters[i]) == iters_exp, f"case {i}"
+        np.testing.assert_allclose(
+            res.soft_syndrome[i].numpy(), ss_exp, rtol=1e-3, atol=1e-5, err_msg=f"case {i}"
+        )
+
+
+@pytest.mark.parametrize("code_fixture", ["ham", "peg", "g5"])
+def test_edge_major_noiseless_recovery(request, code_fixture):
+    """Clipped noiseless LLRs decode in one iteration (5G: the punctured
+    columns carry LLR 0), as tests/test_decoder.py pins."""
+    code = request.getfixturevalue(code_fixture)
+    rng = np.random.default_rng(1)
+    uu = rng.integers(0, 2, size=(4, code.code_dim)).astype(np.uint8)
+    cc = np.stack([code.encode_reference(u) for u in uu])[:, code.punct:]
+    llr = torch.tensor(np.where(cc == 0, 12.0, -12.0), dtype=torch.float32)
+    decode = make_flooding_decoder(code)
+    assert decode.tables.num_edges == code.num_edges
+    res = decode(llr, 50)
+    np.testing.assert_array_equal(res.uu_hat.numpy(), uu)
+    assert bool(res.converged.all())

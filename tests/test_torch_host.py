@@ -111,6 +111,36 @@ def test_constants_equal_original():
         assert getattr(constants, n) == getattr(jax_constants, n), n
 
 
+@pytest.mark.parametrize("scipy_present", [True, False], ids=["mat", "npz-fallback"])
+def test_record_writer_equals_original(tmp_path, monkeypatch, scipy_present):
+    """utils/records.py writes the original's file: the .mat through scipy,
+    or the .npz where scipy is missing, with the same names, types and
+    values."""
+    from scipy.io import loadmat
+
+    from kmldpc_torch.utils import records
+    from kmldpc_tpu.utils import records as jax_records
+
+    if not scipy_present:
+        monkeypatch.setitem(sys.modules, "scipy.io", None)  # import raises ImportError
+    paths = []
+    for mod, name in ((records, "ours"), (jax_records, "ref")):
+        w = mod.RecordWriter(str(tmp_path / name))
+        w.write_int("n", 7)
+        w.write_double("x", 0.1)
+        w.write_complex("z", 1 - 2j)
+        w.write_vector("v", np.arange(5, dtype=np.int32))
+        paths.append(w.close())
+    assert [os.path.basename(p) for p in paths] == (
+        ["ours.mat", "ref.mat"] if scipy_present else ["ours.npz", "ref.npz"])
+    monkeypatch.undo()
+    ours, ref = (loadmat(p) if scipy_present else dict(np.load(p)) for p in paths)
+    names = {k for k in ref if not k.startswith("__")}
+    assert names == {k for k in ours if not k.startswith("__")} == {"n", "x", "z", "v"}
+    for k in names:
+        assert ours[k].dtype == ref[k].dtype and np.array_equal(ours[k], ref[k]), k
+
+
 def _imported_modules(path: pathlib.Path) -> set[str]:
     mods = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

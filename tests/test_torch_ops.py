@@ -10,7 +10,13 @@ from kmldpc_tpu.ops import ModemTables as JaxModemTables
 from kmldpc_tpu.ops import make_encoder as jax_make_encoder
 from kmldpc_tpu.ops import make_mapper as jax_make_mapper
 from kmldpc_tpu.ops import make_soft_demapper as jax_make_soft_demapper
+from kmldpc_tpu.ops.channel import (
+    partitioned_fading_awgn_channel as jax_partitioned_channel,
+)
 from kmldpc_tpu.ops.encode import encoder_table as jax_encoder_table
+from kmldpc_tpu.ops.modem import make_partition_demapper as jax_make_partition_demapper
+from kmldpc_tpu.ops.modem import make_prior_demapper as jax_make_prior_demapper
+from kmldpc_tpu.ops.source import random_symbols as jax_random_symbols
 from kmldpc_torch.code import load_code
 from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.ops import (
@@ -21,11 +27,15 @@ from kmldpc_torch.ops import (
     make_encoder,
     make_generator,
     make_mapper,
+    make_partition_demapper,
+    make_prior_demapper,
     make_soft_demapper,
+    partitioned_fading_awgn_channel,
     random_bits,
+    random_symbols,
 )
 
-from .oracle import demap_oracle
+from .oracle import demap_oracle, demap_prior_oracle
 
 TABLES = ["2bits_QPSK.txt", "4bit_16QAM_Gray.txt", "6bits_64QAM_Gray.txt"]
 
@@ -179,3 +189,123 @@ def test_random_bits_and_chunk_seeds():
     assert chunk_seed(1, 5.0, 0, 0) != chunk_seed(0, 5.0, 0, 0)
     assert chunk_seed(0, 15.0, 2, 1) == chunk_seed(0, 15.0004, 2, 1)  # milli-dB key
     assert all(0 <= s < 2**63 for s in seeds)
+
+
+def test_random_symbols_distribution_as_jax():
+    """Uniform over [0, qary) as int32, as the JAX package's draw (the two
+    generators differ, so the draws are held to the same distribution
+    check as tests/test_sim.py's), and a seed replays its draw."""
+    ours = random_symbols(make_generator(0, "cpu"), 5, (4000,), "cpu")
+    ref = np.asarray(jax_random_symbols(jax.random.key(0), 5, (4000,)))
+    assert ours.dtype == torch.int32 and ref.dtype == np.int32
+    for s in (ours.numpy(), ref):
+        assert s.min() >= 0 and s.max() <= 4
+        assert (np.abs(np.bincount(s, minlength=5) / 4000 - 0.2) < 0.04).all()
+    assert torch.equal(ours, random_symbols(make_generator(0, "cpu"), 5, (4000,), "cpu"))
+
+
+def test_partitioned_channel_as_jax():
+    """One h per equal segment: without noise y = h_p x on segment p, in the
+    port as in the JAX package; one part draws what fading_awgn_channel
+    draws; an indivisible count raises the JAX package's ValueError."""
+    rng = np.random.default_rng(8)
+    xr, xi = (rng.normal(size=(3, 12)).astype(np.float32) for _ in range(2))
+    ours = partitioned_fading_awgn_channel(make_generator(2, "cpu"), torch.from_numpy(xr),
+                                           torch.from_numpy(xi), 0.0, 3)
+    ref = jax_partitioned_channel(jax.random.key(2), jnp.asarray(xr), jnp.asarray(xi), 0.0, 3)
+    for yr, yi, hr, hi in ((t.numpy() for t in ours), (np.asarray(a) for a in ref)):
+        assert hr.shape == hi.shape == (3, 3)
+        h = np.repeat(hr + 1j * hi, 4, axis=1)
+        np.testing.assert_allclose(yr + 1j * yi, h * (xr + 1j * xi), rtol=1e-6, atol=1e-6)
+    one = partitioned_fading_awgn_channel(make_generator(4, "cpu"), torch.from_numpy(xr),
+                                          torch.from_numpy(xi), 0.3, 1)
+    plain = fading_awgn_channel(make_generator(4, "cpu"), torch.from_numpy(xr),
+                                torch.from_numpy(xi), 0.3)
+    for a, b in zip(one, plain):
+        assert torch.equal(a.reshape(b.shape), b)
+    with pytest.raises(ValueError) as e:
+        partitioned_fading_awgn_channel(make_generator(0, "cpu"), torch.zeros((1, 8)),
+                                        torch.zeros((1, 8)), 0.1, 3)
+    with pytest.raises(ValueError) as e_ref:
+        jax_partitioned_channel(jax.random.key(0), jnp.zeros((1, 8)), jnp.zeros((1, 8)), 0.1, 3)
+    assert str(e.value) == str(e_ref.value) == "8 symbols not divisible into 3 parts"
+
+
+@pytest.mark.parametrize("fname", TABLES)
+def test_prior_demap_matches_jax_and_oracle(assets, fname):
+    """Non-uniform priors: the prior-in / extrinsic-out demapper against the
+    JAX package's under jax.jit (rtol 1e-5, as the soft demapper) and
+    against tests/oracle.py's float64 demap_prior_oracle at
+    tests/test_ops.py's tolerances."""
+    c = parse_constellation(str(assets / fname))
+    m = c.bits_per_symbol
+    rng = np.random.default_rng(11)
+    b, nsym = 3, 5
+    y = rng.normal(size=(b, nsym)) + 1j * rng.normal(size=(b, nsym))
+    h = rng.normal(size=b) + 1j * rng.normal(size=b)
+    prior = rng.uniform(0.05, 0.95, size=(b, nsym * m))
+    var = np.float32(0.3)
+    args = [a.astype(np.float32) for a in (y.real, y.imag, h.real, h.imag)]
+    p0, llr = make_prior_demapper(ModemTables.from_constellation(c))(
+        *map(torch.from_numpy, args), var, torch.from_numpy(prior.astype(np.float32)))
+    rp0, rllr = jax.jit(jax_make_prior_demapper(JaxModemTables.from_constellation(c)))(
+        *args, var, prior.astype(np.float32))
+    np.testing.assert_allclose(p0.numpy(), np.asarray(rp0), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(llr.numpy(), np.asarray(rllr), rtol=1e-5, atol=1e-5)
+    got, ll = p0.numpy().reshape(b, nsym, m), llr.numpy().reshape(b, nsym, m)
+    for i in range(b):
+        for s in range(nsym):
+            expect = demap_prior_oracle(y[i, s], h[i], float(var), c.points, c.bits,
+                                        prior[i, s * m:(s + 1) * m])
+            np.testing.assert_allclose(got[i, s], expect, rtol=5e-3, atol=1e-5)
+            np.testing.assert_allclose(ll[i, s], np.log(expect / (1 - expect)),
+                                       rtol=5e-3, atol=1e-3)
+
+
+def test_prior_demap_uniform_equals_soft_demap(assets):
+    """At uniform priors the prior demapper is the soft demapper, pinned as
+    tests/test_ops.py pins it for the JAX package."""
+    c = parse_constellation(str(assets / "4bit_16QAM_Gray.txt"))
+    tables = ModemTables.from_constellation(c)
+    rng = np.random.default_rng(5)
+    b, nsym = 4, 8
+    yr, yi = (torch.tensor(rng.normal(size=(b, nsym)), dtype=torch.float32) for _ in range(2))
+    hr, hi = (torch.tensor(rng.normal(size=b), dtype=torch.float32) for _ in range(2))
+    p0_u, llr_u = make_soft_demapper(tables)(yr, yi, hr, hi, 0.25)
+    prior = torch.full((b, nsym * c.bits_per_symbol), 0.5)
+    p0_p, llr_p = make_prior_demapper(tables)(yr, yi, hr, hi, 0.25, prior)
+    np.testing.assert_allclose(p0_p.numpy(), p0_u.numpy(), rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(llr_p.numpy(), llr_u.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_partition_demap_as_jax(assets):
+    """Two segments: the partition demapper equals the JAX package's on the
+    same arrays and recovers each segment's bits with its own gain, where a
+    single-h demap fails on the second segment (tests/test_aux.py); one
+    part is the plain soft demapper; an indivisible count raises JAX's
+    ValueError."""
+    const = parse_constellation(str(assets / "2bits_QPSK.txt"))
+    tables = ModemTables.from_constellation(const)
+    rng = np.random.default_rng(0)
+    b, nsym, m = 4, 64, 2
+    bits = rng.integers(0, 2, size=(b, nsym * m)).astype(np.int8)
+    xr, xi = make_mapper(tables)(torch.from_numpy(bits))
+    yr, yi, hr, hi = partitioned_fading_awgn_channel(make_generator(5, "cpu"), xr, xi, 1e-3, 2)
+    _, llr = make_partition_demapper(tables, 2)(yr, yi, hr, hi, np.float32(1e-6))
+    _, ref = jax_make_partition_demapper(JaxModemTables.from_constellation(const), 2)(
+        *(t.numpy() for t in (yr, yi, hr, hi)), np.float32(1e-6))
+    np.testing.assert_allclose(llr.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal((llr.numpy() <= 0).astype(np.int8), bits)
+    _, llr1 = make_soft_demapper(tables)(yr, yi, hr[:, 0], hi[:, 0], np.float32(1e-6))
+    wrong = (llr1.numpy() <= 0).astype(np.int8) != bits
+    assert wrong[:, nsym // 2 * m:].mean() > 0.2
+    p1, l1 = make_soft_demapper(tables)(yr, yi, hr[:, 0], hi[:, 0], np.float32(0.1))
+    p2, l2 = make_partition_demapper(tables, 1)(yr, yi, hr[:, :1], hi[:, :1], np.float32(0.1))
+    assert torch.equal(p1, p2) and torch.equal(l1, l2)
+    with pytest.raises(ValueError) as e:
+        make_partition_demapper(tables, 3)(torch.zeros((1, 8)), torch.zeros((1, 8)),
+                                           torch.zeros((1, 3)), torch.zeros((1, 3)), 0.1)
+    with pytest.raises(ValueError) as e_ref:
+        jax_make_partition_demapper(JaxModemTables.from_constellation(const), 3)(
+            jnp.zeros((1, 8)), jnp.zeros((1, 8)), jnp.zeros((1, 3)), jnp.zeros((1, 3)), 0.1)
+    assert str(e.value) == str(e_ref.value)

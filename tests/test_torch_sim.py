@@ -174,17 +174,36 @@ def test_every_config_builds_or_names_an_open_item(path):
     [
         ("tpu", dict(model_parallel=2), "multi-device"),
         ("tpu", dict(data_parallel=2), "multi-device"),
-        ("histogram", dict(enable=True), "snr_fold, checkpoints, histogram, dumps"),
-        ("tpu", dict(kmeans_dump_dir="x"), "snr_fold, checkpoints, histogram, dumps"),
-        ("tpu", dict(debug_blocks=2), "snr_fold, checkpoints, histogram, dumps"),
-        ("tpu", dict(checkpoint_path="x.json"), "snr_fold, checkpoints, histogram, dumps"),
-        ("tpu", dict(profile_dir="x"), "snr_fold, checkpoints, histogram, dumps"),
     ],
 )
 def test_unported_knobs_raise(assets, section, kv, item):
     cfg = _cfg(assets, **{section: kv})
     with pytest.raises(NotImplementedError, match=item):
         Simulator(cfg, _quiet(), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "section,kv,made",
+    [
+        ("histogram", dict(enable=True), "histogram_15.000000.txt"),
+        ("tpu", dict(kmeans_dump_dir="km"), "km/kmeans_snr15.000_blk0.mat"),
+        ("tpu", dict(debug_blocks=2), None),
+        ("tpu", dict(checkpoint_path="ck.json"), "ck.json"),
+        ("tpu", dict(profile_dir="prof"), "prof"),
+    ],
+    ids=["histogram", "kmeans-dump", "debug-blocks", "checkpoint", "profile-dir"],
+)
+def test_harness_knobs_run(assets, tmp_path, monkeypatch, section, kv, made):
+    """Each harness knob the port once refused: a Simulator on the CPU runs
+    a one-point sweep of 4 blocks at 15 dB (assets/config.toml: blind 16QAM)
+    and leaves what the knob asks for in the working directory."""
+    monkeypatch.chdir(tmp_path)
+    cfg = _cfg(assets, **{section: kv}, range=dict(maximum_block_number=4, minimum_snr=15.0,
+                                                   maximum_snr=15.0))
+    cfg = dataclasses.replace(cfg, tpu=dataclasses.replace(cfg.tpu, batch=4))
+    r = Simulator(cfg, _quiet(), device="cpu").simulate()
+    assert len(r) == 1 and r[0].tot_blk == 4
+    assert made is None or os.path.exists(made)
 
 
 def test_cuda_without_a_card_raises(assets):
@@ -228,3 +247,43 @@ def test_package_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr[-2000:]
+
+
+
+def _committed_runs() -> dict:
+    """File stem in parity_torch/ -> (chip_smoke.py's run name, its C++ log)."""
+    import chip_smoke
+
+    runs = {t.removesuffix(".toml"): (t.removesuffix(".toml"), log) for t, log in chip_smoke.SWEEPS}
+    runs.update(blind_QPSK=("blind QPSK", "ref_blind_qpsk.log"),
+                known_h_QPSK=("known-h QPSK", "ref_known_qpsk_r5.log"),
+                fast_stack=("fast stack", "ref_blind_qpsk.log"))
+    return runs
+
+
+@pytest.mark.parametrize("name", sorted(p.stem for p in (REPO / "parity_torch").glob("*.json")))
+def test_committed_port_counts_pass_parity(name):
+    """The port's committed per-sweep counters (parity_torch/, written on the
+    card by chip_smoke.py --counts-dir) pass tools/parity.py against their
+    C++ reference logs with the worst |z| chip_smoke.py holds them to, and
+    against the JAX package's records where it names one."""
+    import json
+
+    import chip_smoke
+    from tools.parity import compare, parse_reference_log
+
+    run, log = _committed_runs()[name]
+    ours = json.loads((REPO / "parity_torch" / f"{name}.json").read_text())
+    parity = REPO / "benchmarks" / "parity"
+    info_bits = ours[0]["tot_bit"] // ours[0]["tot_blk"]
+    rows = compare(parse_reference_log(str(parity / log)), ours, info_bits)
+    assert len(rows) == len(ours) >= 4
+    worst = max(max(abs(r["z_fer"]), abs(r["z_ber"])) for r in rows)
+    assert worst < 4.0
+    if run in chip_smoke.EXPECTED_WORST_Z:
+        assert f"{worst:.3f}" == chip_smoke.EXPECTED_WORST_Z[run]
+    if run in chip_smoke.JAX_RECORDS:
+        ref = {o["snr"]: o for o in json.loads((parity / chip_smoke.JAX_RECORDS[run]).read_text())}
+        jrows = compare(ref, ours, info_bits)
+        assert len(jrows) == len(ours)
+        assert max(max(abs(r["z_fer"]), abs(r["z_ber"])) for r in jrows) < 4.0

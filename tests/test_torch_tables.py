@@ -22,7 +22,8 @@ TABLES = [
     "4bit_16QAM_phi1.txt", "4bit_16QAM_phi2.txt", "6bits_64QAM_Gray.txt",
 ]
 DEC_ARRAYS = ["perm_sm_c2r", "row_edge_col", "col_sort", "col_unsort", "row_unsort",
-              "perm_cf_c2r", "row_col_cf"]
+              "perm_cf_c2r", "row_col_cf", "edge_col", "col_edge_idx", "row_edge_idx",
+              "row_mask", "edge_rowslot"]
 DEC_STATIC = ["num_col", "num_row", "num_edges", "code_dim", "punct", "is_5g", "info_start",
               "dc", "dr", "col_classes", "row_classes"]
 
