@@ -6,6 +6,14 @@ Phases (any failure raises and exits non-zero):
 
 1. device: require CUDA; print the card's name and power limit (nvidia-smi);
 2. build: compile kernel K1 (csrc/kmeans.cu) from the checkout's sources;
+2b. native: build the port's GF(2) eliminator (native/gf2_eliminate.cc)
+   with g++, failing if it does not build (no NumPy fallback here), and on
+   the three asset codes (PEG2304, PEG8064 forward, 5G BG2 K=960 reverse)
+   hold ``systematize`` bitwise against the NumPy elimination (enc_h,
+   perm, rank) and ``compile_code`` through it against the NumPy route
+   (every ``LDPCCode`` field); host-clock times of both, beside the card
+   and the host CPU.  Host code, not a kernel: it is not in the kernels
+   line;
 3. K1 against its plain PyTorch version on every row shape the later
    phases give it: QPSK / 16QAM Gray / 64QAM Gray at their PEG2304 symbol
    counts (15 dB channel outputs), 64QAM at PEG8064's (sweep 5's front
@@ -213,6 +221,88 @@ def phase_build() -> None:
     _build.load_library()
     log(f"build: K1 library {_build.library_path().name} ready in "
         f"{time.monotonic() - t0:.3f} s")
+
+
+NATIVE_CODES = (  # (code, reverse elimination) as compile_code picks it
+    ("PEG2304regular0.5.txt", False),
+    ("PEG8064regular0.5.txt", False),
+    ("5GLDPCBG2a3_R12_K960.txt", True),
+)
+NATIVE_REPS = 3
+
+
+def _host_cpu() -> str:
+    """The host's CPU as /proc/cpuinfo gives it (vendor, family and model
+    beside the name, which a virtual machine may withhold)."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break  # the first processor's block
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')}), "
+            f"{os.cpu_count()} CPUs")
+
+
+def _host_times(fn, reps: int) -> tuple[list[float], object]:
+    times, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        times.append(time.perf_counter() - t0)
+    return times, out
+
+
+def phase_native(smi: str) -> None:
+    """The port's native GF(2) eliminator: built with g++ here, bitwise the
+    NumPy elimination and the NumPy route of compile_code on the asset codes."""
+    from unittest import mock
+
+    import numpy as np
+
+    from kmldpc_torch.code import compile_code, ldpc
+    from kmldpc_torch.io import parse_hmatrix
+    from kmldpc_torch.native import gf2_native
+
+    cpu = _host_cpu()
+    lib = gf2_native.library_path()
+    found = os.path.exists(lib)
+    t0 = time.monotonic()
+    if not gf2_native.available():
+        raise RuntimeError("native GF(2) eliminator did not build or load (warning above); "
+                           "this machine has a C++ toolchain, so the NumPy fallback would "
+                           "hide the module under test")
+    log(f"native GF(2) eliminator: {os.path.basename(lib)} "
+        f"{'found' if found else 'built with ' + gf2_native.CXX} in "
+        f"{time.monotonic() - t0:.3f} s; host {cpu}")
+    for fname, reverse in NATIVE_CODES:
+        path = os.path.join(HERE, "assets", fname)
+        h = parse_hmatrix(path).to_dense()
+        nat_t, nat = _host_times(lambda: gf2_native.systematize(h, reverse), NATIVE_REPS)
+        ref_t, ref = _host_times(lambda: ldpc._numpy_systematize(h, reverse), NATIVE_REPS)
+        if not (nat[2] == ref[2] and np.array_equal(nat[1], ref[1])
+                and np.array_equal(nat[0], ref[0])):
+            raise RuntimeError(f"native GF(2) {fname}: native != NumPy elimination")
+        name = os.path.splitext(fname)[0]
+        code_t, code = _host_times(lambda: compile_code(parse_hmatrix(path), name=name), 1)
+        with mock.patch.object(ldpc, "_native_or_numpy_systematize", ldpc._numpy_systematize):
+            ref_code_t, ref_code = _host_times(
+                lambda: compile_code(parse_hmatrix(path), name=name), 1)
+        a, b = dataclasses.asdict(code), dataclasses.asdict(ref_code)
+        bad = [k for k in a if not (
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            if isinstance(a[k], np.ndarray) else a[k] == b[k])]
+        if bad:
+            raise RuntimeError(f"native GF(2) {fname}: compile_code fields differ: {bad}")
+        nat_s, ref_s = ("/".join(f"{t:.4f}" for t in ts) for ts in (nat_t, ref_t))
+        log(f"native GF(2) {name} ({h.shape[0]}x{h.shape[1]}, "
+            f"{'reverse' if reverse else 'forward'}, rank {nat[2]}): eliminator native "
+            f"{nat_s} s, NumPy {ref_s} s ({min(ref_t) / min(nat_t):.2f}x, best of "
+            f"{NATIVE_REPS}); compile_code native {code_t[0]:.4f} s, NumPy {ref_code_t[0]:.4f} s; "
+            f"enc_h, perm, rank and every LDPCCode field bitwise equal; host clock, host {cpu}, "
+            f"card {smi}")
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -1423,6 +1513,7 @@ def main(argv: list[str] | None = None) -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     phase_build()
+    phase_native(smi)
     k1 = phase_k1(dev, fp32_ops_per_s())
     launches = phase_main_path(card, dev)
     counts = phase_parity(dev)

@@ -10,7 +10,8 @@ but on a bit-packed uint64 representation so the one-time cost is seconds,
 not minutes, even for PEG8064 (4032x8064).
 
 This module is NumPy-only; it runs on the host at asset-compile time.
-Copy of ``kmldpc_tpu/code/gf2.py``; the port has no native eliminator.
+Copy of ``kmldpc_tpu/code/gf2.py``; the oracle of the port's native
+eliminator (``native/gf2_eliminate.cc``) and its fallback.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 
 Copy of ``kmldpc_tpu/code/ldpc.py`` kept by the port so that it imports
 nothing of the JAX package; ``tests/test_torch_host.py`` holds the two equal.
-It systematises with the NumPy elimination of ``gf2.py`` only, and caches
-compiled codes in its own directory (``.cache/kmldpc_torch/``).
+It systematises with the port's native eliminator (``native/gf2_native.py``,
+built with g++ at first use) and falls back, with a warning, to the NumPy
+elimination of ``gf2.py``, which gives the same tables; it caches compiled
+codes in its own directory (``.cache/kmldpc_torch/``).
 
 The reference builds, per process, a pointer-linked Tanner graph plus a dense
 systematized encoder matrix (``binaryldpccodec.cc:62-141,346-492``).  Here the
@@ -38,6 +40,7 @@ import tempfile
 import numpy as np
 
 from ..io.hmatrix import ParityCheckMatrix, parse_hmatrix
+from ..native import gf2_native
 from . import gf2
 
 _CACHE_VERSION = 3
@@ -169,10 +172,7 @@ def compile_code(
     """Systematize + build all static tables for one parity-check matrix."""
     is_5g = hmat.lifting_factor is not None
     h_dense = hmat.to_dense()
-    if is_5g:
-        enc_h, perm, rank = gf2.systematize_reverse(h_dense)
-    else:
-        enc_h, perm, rank = gf2.systematize_forward(h_dense)
+    enc_h, perm, rank = _native_or_numpy_systematize(h_dense, reverse=is_5g)
     num_row, num_col = hmat.num_row, hmat.num_col
     code_chk = rank
     code_dim = num_col - code_chk
@@ -206,6 +206,19 @@ def compile_code(
         parity_gen=parity_gen,
         **adj,
     )
+
+
+def _numpy_systematize(h: np.ndarray, reverse: bool):
+    if reverse:
+        return gf2.systematize_reverse(h)
+    return gf2.systematize_forward(h)
+
+
+def _native_or_numpy_systematize(h: np.ndarray, reverse: bool):
+    """Use the C++ eliminator when it builds; NumPy's, bitwise the same, otherwise."""
+    if gf2_native.available():
+        return gf2_native.systematize(h, reverse)
+    return _numpy_systematize(h, reverse)
 
 
 

@@ -6,6 +6,7 @@ import ast
 import dataclasses
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -18,9 +19,10 @@ from kmldpc_tpu.config import load_config as jax_load_config
 from kmldpc_tpu.io import parse_constellation as jax_parse_constellation
 from kmldpc_tpu.io import parse_hmatrix as jax_parse_hmatrix
 from kmldpc_torch import constants
-from kmldpc_torch.code import compile_code, load_code
+from kmldpc_torch.code import compile_code, ldpc, load_code
 from kmldpc_torch.config import load_config
 from kmldpc_torch.io import parse_constellation, parse_hmatrix
+from kmldpc_torch.native import gf2_native
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CODES = ["PEG2304regular0.5.txt", "PEG8064regular0.5.txt", "5GLDPCBG2a3_R12_K960.txt"]
@@ -42,10 +44,18 @@ def _fields_equal(a, b) -> None:
             assert fa[k] == fb[k], k
 
 
+@pytest.mark.parametrize("route", ["native", "numpy"])
 @pytest.mark.parametrize("fname", CODES)
-def test_ldpc_code_equals_original(assets, fname, tmp_path, monkeypatch):
+def test_ldpc_code_equals_original(assets, fname, route, tmp_path, monkeypatch):
     """Parse, systematise and build tables as kmldpc_tpu does, also after a
-    round trip through the port's disk cache."""
+    round trip through the port's disk cache, through either route of the
+    elimination: the native eliminator, or NumPy's (forced)."""
+    if route == "native":
+        if shutil.which(gf2_native.CXX) is None:
+            pytest.skip(f"no C++ toolchain ({gf2_native.CXX} not on PATH)")
+        assert gf2_native.available()
+    else:
+        monkeypatch.setattr(ldpc, "_native_or_numpy_systematize", ldpc._numpy_systematize)
     path = str(assets / fname)
     _fields_equal(parse_hmatrix(path), jax_parse_hmatrix(path))
     name = pathlib.Path(fname).stem
@@ -64,7 +74,8 @@ def test_ldpc_code_equals_original(assets, fname, tmp_path, monkeypatch):
 
 def test_load_code_cache_survives_concurrent_writers(assets, tmp_path):
     """Processes that compile the same code into a cold cache at once all
-    succeed and leave one cache file and no temp file behind."""
+    succeed and leave one cache file (and the native eliminator's library)
+    and no temp file behind."""
     prog = (
         "import sys\n"
         "from kmldpc_torch.code import load_code\n"
@@ -80,7 +91,10 @@ def test_load_code_cache_survives_concurrent_writers(assets, tmp_path):
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-2000:]
         assert out.strip() == "2304"
-    assert [p.name.endswith(".npz") for p in (tmp_path / "cache").iterdir()] == [True]
+    # beside the native eliminator's library, which the processes built there
+    lib = pathlib.Path(gf2_native.library_path()).name
+    assert [p.name.endswith(".npz") for p in (tmp_path / "cache").iterdir()
+            if p.name != lib] == [True]
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.name)
