@@ -629,6 +629,122 @@ def phase_bf16(dev: torch.device) -> None:
         raise AssertionError("bfloat16 back end: card and CPU block errors differ")
 
 
+# phase 8b, the measurement tools at a cut depth: the decoder group at 5 of
+# its 20 iterations, every row at fixed short and long runs of 2 and 6
+# calls, one pass; snrfold_bench at 1024 of its 4096 blocks a point;
+# locality at its depth but one pass; scaling at 64 codewords a rank (of
+# 128) and a batch of 64 (of 256), data mode on 1 and 2 of 4 ranks
+TOOLS_ITERS, TOOLS_N1, TOOLS_N2 = 5, 2, 6
+TOOLS_SNRFOLD_BLOCKS = 1024
+TOOLS_SCALING_BATCH = 64
+TOOLS_DECODER_ROWS = [
+    f"decoder/{code}/{label}" for code, labels in (
+        ("PEG8064", ("flooding", "flooding[em]", "flooding-minsum[em]", "minsum[generic]")),
+        ("5G-BG2-K960", ("flooding", "flooding[em]", "flooding-minsum[em]", "minsum[qc]",
+                         "minsum[generic]")),
+        ("PEG2304", ("flooding", "flooding[em]", "flooding-minsum[em]", "minsum[generic]")))
+    for label in labels]
+TOOLS_KMEANS_ROWS = [f"kmeans/{c}/{impl}" for c in ("QPSK", "16QAM", "64QAM")
+                     for impl in ("plain", "cuda")]
+
+
+def _tool(fn, *args, **kw):
+    """``fn(*args, **kw)`` of a tool, its stderr lines logged."""
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        out = fn(*args, **kw)
+    for line in err.getvalue().splitlines():
+        log(f"tools {line}")
+    return out
+
+
+def _finite_rows(results: dict, keys: list[str], metric: str, failed: list[str]) -> None:
+    for k in keys:
+        v = results.get(k, {}).get(metric)
+        if not (isinstance(v, (int, float)) and 0 < v < float("inf")):
+            failed.append(f"{k}: {metric} {v}")
+
+
+def _rank_tools(dev: torch.device, out: str) -> dict:
+    """Phase 8b's scaling runs on one rank: data mode on 1 and 2 ranks,
+    edge mode on 1, 2 and 4 row shards; rank 0's lines."""
+    from kmldpc_torch.tools import scaling
+
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        scaling.header(dev)
+        data = scaling.data_mode(TOOLS_SCALING_BATCH, dev, [1, 2])
+        edge = scaling.edge_mode(TOOLS_SCALING_BATCH, dev, [1, 2, 4])
+    return {"lines": text.getvalue().splitlines(), "data": data, "edge": edge}
+
+
+def phase_tools(dev: torch.device, smi: str) -> None:
+    """Phase 8b: every measurement tool of kmldpc_torch/tools at a cut depth
+    (TOOLS_*): microbench's decoder group on the three codes at B = 1024 and
+    its k-means group, plain and K1 (whose estimate must equal the plain
+    one on the same inputs); snrfold_bench with bitwise counters; locality
+    with its sanity decode on PEG8064; scaling on 4 gloo ranks.  Every row
+    must be present, positive and finite.  Host clock, beside the card."""
+    from kmldpc_torch.io import parse_constellation
+    from kmldpc_torch.ops import ModemTables
+    from kmldpc_torch.tools import locality, microbench, snrfold_bench
+
+    t_phase = time.monotonic()
+    failed: list[str] = []
+    rows: dict = {"device": microbench.device_name(dev)}
+    t0 = time.monotonic()
+    _tool(microbench.bench_decoders, rows, 1024, TOOLS_ITERS, 1, dev, n1=TOOLS_N1, n2=TOOLS_N2)
+    _tool(microbench.bench_kmeans, rows, 1024, device=dev, n1=TOOLS_N1, n2=TOOLS_N2)
+    mb_s = time.monotonic() - t0
+    if sorted(rows) != sorted(["device", *TOOLS_DECODER_ROWS, *TOOLS_KMEANS_ROWS]):
+        failed.append(f"microbench rows {sorted(rows)}")
+    _finite_rows(rows, TOOLS_DECODER_ROWS, "us_per_iter", failed)
+    _finite_rows(rows, TOOLS_KMEANS_ROWS, "us_per_call", failed)
+    errs = {}
+    for cname, fname, div in microbench.CONSTELLATIONS:
+        tables = ModemTables.from_constellation(
+            parse_constellation(os.path.join(microbench.ASSETS, fname)), dev)
+        impls = microbench.kmeans_impls(tables, dev)
+        y = microbench.seeded_normal(3 << 32 | 1, (2, 1024, 1152 // div), dev)
+        ref, got = impls["plain"](y[0], y[1]), impls["cuda"](y[0], y[1])
+        errs[cname] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        if not all(torch.allclose(a, b, rtol=RTOL, atol=ATOL) for a, b in zip(got, ref)):
+            failed.append(f"kmeans/{cname}: K1 differs from the plain estimate")
+    log(f"tools microbench: {len(rows) - 1} rows in {mb_s:.3f} s; K1 (cuda row) against the "
+        f"plain row on one call's inputs, max |err| "
+        + ", ".join(f"{c} {e:.3g}" for c, e in errs.items()) + f" (rtol {RTOL}, atol {ATOL})")
+    t0 = time.monotonic()
+    fold = _tool(snrfold_bench.run, TOOLS_SNRFOLD_BLOCKS, 1024, dev)
+    fold_s = time.monotonic() - t0
+    for name in ("sequential", "folded7"):
+        r = fold.get(f"snrfold/{name}", {})
+        if r.get("points") != 7 or r.get("blocks") != 7 * TOOLS_SNRFOLD_BLOCKS:
+            failed.append(f"snrfold/{name}: {r}")
+        _finite_rows(fold, [f"snrfold/{name}"], "wall_s", failed)
+    t0 = time.monotonic()
+    loc = _tool(locality.run, "PEG8064regular0.5.txt", 1024, 20, 1, dev, n1=TOOLS_N1,
+                n2=TOOLS_N2)
+    loc_s = time.monotonic() - t0
+    _finite_rows(loc, [f"locality/PEG8064regular0/{rule}/{label}" for rule in
+                       ("minsum", "sumprod") for label in ("orig", "rcm")], "us_per_iter", failed)
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory() as out:
+        _spawn(4, [__file__, "--rank-task", "tools", "--out", out])
+        ranks = _read_ranks(out, 4)
+    scale_s = time.monotonic() - t0
+    for line in ranks[0]["lines"]:
+        log(f"tools scaling: {line}")
+    if any(r["lines"] for r in ranks[1:]):
+        failed.append("scaling: a rank other than 0 printed")
+    for mode, sizes in (("data", [1, 2]), ("edge", [1, 2, 4])):
+        got = ranks[0][mode]
+        if [n for n, _ in got] != sizes or not all(0 < v < float("inf") for _, v in got):
+            failed.append(f"scaling {mode}: {got}")
+    log(f"tools phase: {time.monotonic() - t_phase:.3f} s (microbench {mb_s:.3f}, snrfold "
+        f"{fold_s:.3f}, locality {loc_s:.3f}, scaling on 4 ranks {scale_s:.3f}) host clock "
+        f"on {smi}")
+    if failed:
+        raise AssertionError("tools: " + "; ".join(failed))
+
+
 LABELS = ("frontend", "kmeans", "metric", "demap", "decode", "counters")
 
 
@@ -1396,7 +1512,8 @@ def rank_worker(task: str, out: str) -> int:
     dev = rank_device("cuda")
     rank = dist.get_rank()
     try:
-        result = {"dp": _rank_dp, "mp": _rank_mp, "campaign": _rank_campaign}[task](dev, out)
+        result = {"dp": _rank_dp, "mp": _rank_mp, "campaign": _rank_campaign,
+                  "tools": _rank_tools}[task](dev, out)
         result["backend"] = dist.get_backend()
         result["device"] = str(dev)
     finally:
@@ -1454,7 +1571,8 @@ def phase_multi_rank(dev: torch.device, smi: str) -> tuple[list[int], dict]:
     and on each rank of each config of (f)'s campaign that runs K1."""
     from kmldpc_torch.config import load_config
     from kmldpc_torch.decoder import flooding_decode_em
-    from kmldpc_torch.sim import make_chunk_runner
+    from kmldpc_torch.sim import Simulator, make_chunk_runner
+    from kmldpc_torch.utils import SimLogger
 
     t_phase = time.monotonic()
     torch.cuda.empty_cache()
@@ -1600,6 +1718,18 @@ def phase_multi_rank(dev: torch.device, smi: str) -> tuple[list[int], dict]:
         failed.append("(e) edge-sharded decoder disagrees")
     # (f) the campaign on 8 ranks: one layout a config over the first ranks
     k1_campaign = _judge_campaign(camp, camp_dirs, camp_files, dp, failed, smi)
+    # (g) the main path at data_parallel = 2 in this one process
+    t0 = time.monotonic()
+    sim = Simulator(_replace(cfg, tpu=dict(data_parallel=2)), SimLogger(log_dir=None,
+                                                                        stdout=False), device=dev)
+    one = _sweep_results(sim.simulate())
+    sim.close()
+    same = _point_counters(one) == _point_counters(dp[0]["a_sweep"])
+    log(f"multi-rank (g) main path at data_parallel = 2 in one process ({sim.ndata} data "
+        f"shards on {sim.grid.ndata} rank, B={sim.batch}): counters == (a)'s 2-rank sweep "
+        f"bitwise: {same}; {time.monotonic() - t0:.3f} s host clock on {smi}")
+    if not same or (sim.ndata, sim.grid.ndata) != (2, 1):
+        failed.append("(g) data_parallel = 2 in one process differs from (a)'s 2-rank sweep")
     log(f"multi-rank phase: {time.monotonic() - t_phase:.3f} s (2 ranks {dp_s:.3f} s, "
         f"8 ranks {mp_s:.3f} s, CLI {', '.join(f'{w:.3f}' for _, w in cli.values())} s, "
         f"campaign {camp_s:.3f} s) on {smi}")
@@ -1682,7 +1812,8 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--counts-dir", default=None,
                         help="also write each parity run's counters there, one JSON file a run")
-    parser.add_argument("--rank-task", choices=("dp", "mp", "campaign"), help=argparse.SUPPRESS)
+    parser.add_argument("--rank-task", choices=("dp", "mp", "campaign", "tools"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--out", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.rank_task:
@@ -1700,6 +1831,7 @@ def main(argv: list[str] | None = None) -> int:
     fast_launches, counts["fast stack"] = phase_harness(dev)
     phase_layered(dev)
     phase_bf16(dev)
+    phase_tools(dev, smi)
     phase_profile(dev)
     phase_profile_dir(dev)
     k1_ranks, k1_campaign = phase_multi_rank(dev, smi)

@@ -14,4 +14,5 @@ as in ``kmldpc_tpu`` and held equal to them by the tests.
 
 __version__ = "0.1.0"
 
+from .config import Config, load_config  # noqa: F401
 from .device import resolve_device  # noqa: F401

@@ -85,20 +85,29 @@ def layout(data_parallel: int, model_parallel: int, world: int,
 
     Model parallel (``model_parallel > 1``) takes ``data_parallel`` data
     rows, or as many as the ranks hold; otherwise ``data_parallel`` data
-    ranks, or all of them, and one rank where the batch is smaller than
-    that (it runs undivided).  The layout takes the first ``ndata * nmodel``
-    ranks, as the JAX package takes the first devices.  Where the ranks
-    cannot hold the layout asked for, it raises the JAX package's words and
-    the ranks to start; JAX's ``get_mesh`` would quietly take the devices
-    there are, which would change a data-parallel config's draws.
+    shards, or one a rank, and one shard where the batch is smaller than
+    that (it runs undivided).  The layout takes the first ranks, as the
+    JAX package takes the first devices.  ``ndata`` counts data shards: a
+    data-parallel layout runs on :func:`data_ranks` of them, fewer where
+    the ranks are fewer than the shards, as JAX's ``get_mesh`` takes the
+    devices there are; the shards' draws stay those of one rank a shard.
+    A model-parallel layout the ranks cannot hold raises the JAX package's
+    words (``get_mesh_2d``) and the ranks to start.
     """
     nmodel = max(1, model_parallel)
     ndata = data_parallel or (max(1, world // nmodel) if nmodel > 1 else world)
-    if ndata * nmodel > world:
+    if nmodel > 1 and ndata * nmodel > world:
         raise _too_few_ranks(ndata, nmodel, world)
     if nmodel == 1 and batch < ndata:
         return 1, 1
     return ndata, nmodel
+
+
+def data_ranks(ndata: int, world: int) -> int:
+    """The ranks that run ``ndata`` data shards: the largest divisor of
+    ``ndata`` that ``world`` ranks hold (1 in a single process), each
+    running ``ndata`` / that many shards in turn."""
+    return max(r for r in range(1, min(ndata, world) + 1) if ndata % r == 0)
 
 
 def _too_few_ranks(ndata: int, nmodel: int, world: int) -> ValueError:

@@ -287,7 +287,7 @@ def make_model_parallel_chunk_runner(
                            spec.tile or max(8, local_batch // 8))
     metric_fn = None if spec.known_h else _slab_metric_fn(spec, slab)
     chain = build_chain_fn(spec, local_batch, device, metric_fn=metric_fn, decode=final)
-    run_launch = sharded_launch_fn(spec, chain, params, grid, n, device, seed)
+    run_launch = sharded_launch_fn(spec, chain, params, grid, n, device, seed, grid.ndata)
     run_launch.params = params  # type: ignore[attr-defined]
     run_launch.blocks_per_launch = n * batch  # type: ignore[attr-defined]
     run_launch.num_row_shards = grid.nmodel  # type: ignore[attr-defined]

@@ -1,14 +1,18 @@
 """Data-parallel launches: the batch split over the ranks of a ``Grid``'s
 data axis (port of ``kmldpc_tpu/parallel/sharding.py``).
 
-A launch of ``n`` sub-chunks of ``batch`` codewords over ``D`` data ranks
-runs, on data rank ``r``, sub-chunks ``r*n .. r*n+n-1`` of ``batch / D``
+A launch of ``n`` sub-chunks of ``batch`` codewords over ``D`` data shards
+runs, in shard ``s``, sub-chunks ``s*n .. s*n+n-1`` of ``batch / D``
 codewords each, from the generators ``chunk_seed(seed, snr, launch, sub)``.
-So the D-rank launch draws exactly what the single-device
+So the D-shard launch draws exactly what the single-device
 ``make_chunk_runner(spec, batch / D, D * n)`` launch draws: its error
 counters are bitwise that launch's (``err_bit_sq`` too while its sums stay
-below 2^24), whatever D is.  The counters are summed over the data group,
-so every rank holds the global ones and takes the same stopping decision.
+below 2^24), whatever D is.  The shards run on the ``R`` data ranks of a
+``Grid`` (R divides D, one shard a rank where the ranks hold them all):
+data rank ``r`` runs shards ``r*D/R .. (r+1)*D/R - 1`` in turn, so a
+``data_parallel = D`` config runs bitwise on fewer ranks, one process
+included.  The counters are summed over the data group, so every rank
+holds the global ones and takes the same stopping decision.
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ def reduce_launch(res: ChunkResult, grid: Grid, gather: bool) -> ChunkResult:
     the data group, ``iters`` averaged, totals scaled to the whole batch.
 
     ``gather`` also concatenates the per-block surfaces the harness reads
-    (metrics, debug, k-means) over the data group in rank order; the
-    decode results stay rank-local.
+    (metrics, debug, k-means) over the data group in rank order, which is
+    shard order; the decode results stay rank-local.
     """
     group = grid.data_group
     counts = all_reduce(torch.stack([res.err_bit, res.err_blk]).to(torch.int64), group)
@@ -62,13 +66,16 @@ def reduce_launch(res: ChunkResult, grid: Grid, gather: bool) -> ChunkResult:
 
 
 def sharded_launch_fn(
-    spec: ChainSpec, chain, params, grid: Grid, n: int, device: torch.device, seed: int
+    spec: ChainSpec, chain, params, grid: Grid, n: int, device: torch.device, seed: int,
+    shards: int,
 ) -> Callable[[float, int, float], ChunkResult]:
-    """``run_launch(snr, launch, var)``: this data rank's ``n`` sub-chunks
-    of ``chain``, reduced over the data group by :func:`reduce_launch`.
-    The per-block surfaces are gathered when the harness writes them
-    (histogram files, debug lines, k-means dumps)."""
-    subs = range(grid.data_rank * n, (grid.data_rank + 1) * n)
+    """``run_launch(snr, launch, var)``: the ``n`` sub-chunks of each of
+    this data rank's ``shards / grid.ndata`` shards of ``chain``, reduced
+    over the data group by :func:`reduce_launch`.  The per-block surfaces
+    are gathered when the harness writes them (histogram files, debug
+    lines, k-means dumps)."""
+    subs_a_rank = shards // grid.ndata * n
+    subs = range(grid.data_rank * subs_a_rank, (grid.data_rank + 1) * subs_a_rank)
     local = launch_fn(chain, params, device, seed, subs)
     gather = spec.histogram or spec.debug_blocks > 0 or spec.kmeans_dump
 
@@ -85,18 +92,23 @@ def make_sharded_chunk_runner(
     chunks_per_launch: int = 1,
     device: torch.device | str = "cuda",
     seed: int = 0,
+    shards: int = 0,
 ) -> Callable[[float, int, float], ChunkResult]:
     """``run_launch(snr, launch, var) -> ChunkResult`` over ``grid``'s data
-    axis.  ``batch`` is the global sub-chunk size and must divide by the
-    data ranks; counters and totals come back global on every rank."""
-    ndev = grid.ndata
-    if batch % ndev != 0:
-        raise ValueError(f"batch {batch} not divisible by mesh size {ndev}")
+    axis, in ``shards`` data shards (0: one a data rank), which the data
+    ranks must divide.  ``batch`` is the global sub-chunk size and must
+    divide by the shards; counters and totals come back global on every
+    rank."""
+    shards = shards or grid.ndata
+    if shards % grid.ndata != 0:
+        raise ValueError(f"{shards} data shards do not divide over {grid.ndata} data ranks")
+    if batch % shards != 0:
+        raise ValueError(f"batch {batch} not divisible by mesh size {shards}")
     n = max(1, chunks_per_launch)
     device = resolve_device(device)
     params = make_chain_params(spec.code, device, spec.schedule)
-    chain = build_chain_fn(spec, batch // ndev, device)
-    run_launch = sharded_launch_fn(spec, chain, params, grid, n, device, seed)
+    chain = build_chain_fn(spec, batch // shards, device)
+    run_launch = sharded_launch_fn(spec, chain, params, grid, n, device, seed, shards)
     run_launch.params = params  # type: ignore[attr-defined]
     run_launch.blocks_per_launch = n * batch  # type: ignore[attr-defined]
     return run_launch
@@ -110,12 +122,14 @@ def make_sharded_multi_point_runner(
     m: int = 2,
     device: torch.device | str = "cuda",
     seed: int = 0,
+    shards: int = 0,
 ) -> Callable[[list[tuple[float, int]], list[float]], ChunkResult]:
     """Data parallel and SNR-point folding composed: ``run_launches(points,
     vars)`` advances ``m`` whole launches a call, each one sharded launch
     of :func:`make_sharded_chunk_runner`, so slot j is bitwise the
     sequential sharded launch of ``points[j]``."""
-    launch = make_sharded_chunk_runner(spec, batch, grid, chunks_per_launch, device, seed)
+    launch = make_sharded_chunk_runner(spec, batch, grid, chunks_per_launch, device, seed,
+                                       shards)
     run_launches = multi_point_fn(launch, m)
     run_launches.params = launch.params  # type: ignore[attr-defined]
     run_launches.blocks_per_launch = launch.blocks_per_launch  # type: ignore[attr-defined]

@@ -45,7 +45,7 @@ from ..code.ldpc import load_code
 from ..config import Config
 from ..device import resolve_device
 from ..io.constellation import parse_constellation
-from ..parallel.distributed import Grid, is_primary, layout, world_size
+from ..parallel.distributed import Grid, data_ranks, is_primary, layout, world_size
 from ..utils.logging import SimLogger
 from .chain import ChainSpec, ChunkResult, make_chunk_runner, make_multi_point_runner
 
@@ -141,11 +141,14 @@ class Simulator:
                 "[tpu].snr_fold is incompatible with kmeans_dump_dir and "
                 "model_parallel (use the sequential path for those)"
             )
-        # the layout over the first ndata x nmodel ranks (1 x 1 on one
-        # device), as the JAX harness lays its mesh over the first devices
-        ndata, nmodel = layout(tpu.data_parallel, tpu.model_parallel, world_size(), self.batch)
+        # the layout over the first ranks (1 x 1 on one device), as the JAX
+        # harness lays its mesh over the first devices.  ndata counts data
+        # shards; fewer ranks than shards run several shards each, with the
+        # draws of one rank a shard
+        world = world_size()
+        ndata, nmodel = layout(tpu.data_parallel, tpu.model_parallel, world, self.batch)
         self.ndata, self.nmodel = ndata, nmodel
-        self.grid = Grid(ndata, nmodel)
+        self.grid = Grid(data_ranks(ndata, world) if nmodel == 1 else ndata, nmodel)
         self.runner = None
         if not self.grid.active:
             return  # idle: no runner, nothing on the device, simulate() -> []
@@ -158,10 +161,11 @@ class Simulator:
 
                 self.batch -= self.batch % ndata
                 self.runner = make_sharded_multi_point_runner(
-                    self.spec, self.batch, self.grid, cpl, self.snr_fold, self.device, tpu.seed
+                    self.spec, self.batch, self.grid, cpl, self.snr_fold, self.device, tpu.seed,
+                    ndata,
                 )
                 self.log.info(
-                    f"Mesh: {ndata} data ranks, data-parallel batch {self.batch}; "
+                    f"Mesh: {self._shards()}, data-parallel batch {self.batch}; "
                     f"SNR-fold {self.snr_fold} launch slots per dispatch"
                 )
             else:
@@ -185,9 +189,9 @@ class Simulator:
 
             self.batch -= self.batch % ndata
             self.runner = make_sharded_chunk_runner(
-                self.spec, self.batch, self.grid, cpl, self.device, tpu.seed
+                self.spec, self.batch, self.grid, cpl, self.device, tpu.seed, ndata
             )
-            self.log.info(f"Mesh: {ndata} data ranks, data-parallel batch {self.batch}")
+            self.log.info(f"Mesh: {self._shards()}, data-parallel batch {self.batch}")
         else:
             self.runner = make_chunk_runner(self.spec, self.batch, cpl, self.device, tpu.seed)
         self.log.info(
@@ -203,6 +207,13 @@ class Simulator:
             if self.device.type == "cuda" else "cpu"
         )
         self.log.info(f"Device: {self.device} ({name}), batch {self.batch} x {cpl} per launch")
+
+    def _shards(self) -> str:
+        """The data layout for the log: shards, and the ranks they run on."""
+        ranks = self.grid.ndata
+        if ranks == self.ndata:
+            return f"{ranks} data ranks"
+        return f"{self.ndata} data shards on {ranks} rank{'s' if ranks > 1 else ''}"
 
     # -- checkpointing ------------------------------------------------------
     def _ckpt_path(self) -> str:
@@ -247,7 +258,8 @@ class Simulator:
     def _fingerprint(self) -> str:
         c = self.cfg
         # The package, the device type, the seed and the runner topology
-        # (the layout of the ranks that run it) are part of the
+        # (data shards x model ranks, not the ranks the shards run on,
+        # which draw the same) are part of the
         # fingerprint: CPU and CUDA generators draw different streams from
         # one seed, as do the JAX package's keys, so a checkpoint written
         # under another of them must start fresh (with a log line), never

@@ -150,9 +150,9 @@ def test_layout_takes_the_devices_jax_takes(data_parallel, model_parallel, world
     """(c) The port's layout takes as many ranks as the JAX harness takes
     devices, the first ones (one where a data-parallel batch is smaller
     than the mesh); where JAX raises, the port raises its words (then the
-    ranks to start).  A data_parallel above the ranks raises in the port
-    alone (tests/test_torch_sim.py::test_unported_knobs_raise): JAX's
-    get_mesh takes the devices there are."""
+    ranks to start).  A data_parallel above the ranks runs its shards on
+    fewer ranks (tests/test_torch_sim.py), as JAX's get_mesh takes the
+    devices there are."""
     try:
         want = _jax_mesh_size(data_parallel, model_parallel, world, batch)
     except ValueError as jax_error:

@@ -414,3 +414,27 @@ def test_edge_major_decoder_and_prior_demap_on_card(assets, cuda):
     p0_p, llr_p = make_prior_demapper(tables)(yr, yi, hr, hi, 0.1, torch.full_like(p0_u, 0.5))
     torch.testing.assert_close(p0_p, p0_u, rtol=1e-5, atol=1e-7)
     torch.testing.assert_close(llr_p, llr_u, rtol=1e-4, atol=1e-4)
+
+
+def test_microbench_kmeans_group_cuda_rows_on_card(cuda):
+    """The microbench k-means group on the card: a ``cuda`` row (K1) beside
+    each ``plain`` row, every time finite and positive, K1 launched for
+    it, and K1's ĥ on one call's inputs within the kernel tolerance of the
+    plain version's."""
+    from kmldpc_torch.tools import microbench
+
+    results = {}
+    before = kmeans_cuda.kmeans_estimate.launches
+    microbench.bench_kmeans(results, batch=1024, device=cuda, n1=2, n2=6)
+    assert kmeans_cuda.kmeans_estimate.launches > before
+    assert list(results) == [f"kmeans/{c}/{impl}" for c in ("QPSK", "16QAM", "64QAM")
+                             for impl in ("plain", "cuda")]
+    assert all(np.isfinite(r["us_per_call"]) and r["us_per_call"] > 0 for r in results.values())
+    for name, fname, div in microbench.CONSTELLATIONS:
+        tables = ModemTables.from_constellation(
+            parse_constellation(str(pathlib.Path(microbench.ASSETS) / fname)), cuda)
+        impls = microbench.kmeans_impls(tables, cuda)
+        y = microbench.seeded_normal(3 << 32 | 7, (2, 1024, 1152 // div), cuda)
+        ref, got = impls["plain"](y[0], y[1]), impls["cuda"](y[0], y[1])
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)

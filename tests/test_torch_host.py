@@ -157,6 +157,25 @@ def test_record_writer_equals_original(tmp_path, monkeypatch, scipy_present):
         assert ours[k].dtype == ref[k].dtype and np.array_equal(ours[k], ref[k]), k
 
 
+def test_package_exports_cover_the_jax_packages():
+    """``kmldpc_torch`` exports every public name ``kmldpc_tpu`` does
+    (``Config``, ``load_config``), each the port's own counterpart."""
+    import types
+
+    import kmldpc_torch
+    import kmldpc_tpu
+    from kmldpc_torch import config as torch_config
+
+    def exports(pkg) -> set[str]:
+        return {n for n, v in vars(pkg).items()
+                if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+    assert {"Config", "load_config"} <= exports(kmldpc_tpu) <= exports(kmldpc_torch)
+    assert kmldpc_torch.load_config is torch_config.load_config
+    assert kmldpc_torch.Config is torch_config.Config
+    assert kmldpc_torch.__version__ == kmldpc_tpu.__version__
+
+
 def _imported_modules(path: pathlib.Path) -> set[str]:
     mods = set()
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

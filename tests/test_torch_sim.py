@@ -2,6 +2,7 @@
 shipped config, and the no-jax rule."""
 
 import dataclasses
+import json
 import os
 import pathlib
 import re
@@ -16,7 +17,8 @@ from kmldpc_tpu.sim import chain as jchain
 from kmldpc_torch.code import load_code
 from kmldpc_torch.config import load_config
 from kmldpc_torch.io import parse_constellation
-from kmldpc_torch.sim.chain import ChainSpec
+from kmldpc_torch.parallel.distributed import data_ranks, layout
+from kmldpc_torch.sim.chain import ChainSpec, make_chunk_runner
 from kmldpc_torch.utils import SimLogger
 from kmldpc_torch import resolve_device
 from kmldpc_torch.sim import Simulator
@@ -176,17 +178,211 @@ def test_roadmap_lists_multi_device_as_done():
     "section,kv,grid",
     [
         ("tpu", dict(model_parallel=2), "mesh (1 data x 2 model)"),
-        ("tpu", dict(data_parallel=2), "mesh (2 data x 1 model)"),
     ],
 )
 def test_unported_knobs_raise(assets, section, kv, grid):
-    """The rank layouts the port once refused: in a one-rank process they
-    raise the JAX package's ValueError, naming the ranks to start."""
+    """The rank layout the port refuses, as JAX's get_mesh_2d does: a
+    model-parallel mesh above the ranks raises the JAX package's ValueError
+    in a one-rank process, naming the ranks to start."""
     cfg = _cfg(assets, **{section: kv})
     with pytest.raises(ValueError) as e:
         Simulator(cfg, _quiet(), device="cpu")
     assert str(e.value).startswith(f"{grid} needs 2 devices, have 1 ")
     assert "start 2 ranks" in str(e.value)
+
+
+@pytest.mark.parametrize("ndata,world,ranks", [
+    (1, 1, 1), (2, 1, 1), (2, 2, 2), (2, 8, 2), (4, 1, 1), (4, 2, 2), (4, 3, 2), (4, 4, 4),
+    (6, 4, 3), (6, 5, 3), (8, 8, 8), (3, 2, 1), (8, 6, 4),
+])
+def test_data_shards_run_on_the_largest_divisor_the_ranks_hold(ndata, world, ranks):
+    """A data-parallel layout of ``ndata`` shards on ``world`` ranks runs
+    on the largest divisor of ``ndata`` the ranks hold; the layout itself
+    keeps its shards, as the JAX harness keeps ``ndev``."""
+    assert data_ranks(ndata, world) == ranks
+    assert layout(ndata, 0, world, 1024) == (ndata, 1)
+
+
+# two blind 16QAM points (assets/config.toml) of three launches, each of two
+# sub-chunks of 16 codewords, at SNRs with block errors in most launches
+DP_SWEEP = dict(range=dict(minimum_snr=8.0, maximum_snr=10.0, step_snr=2.0,
+                           maximum_block_number=96, maximum_error_number=10**9),
+                tpu=dict(batch=16, chunks_per_launch=2))
+# one rank of a run: the Simulator on the config assets/config.toml with the
+# overrides of a JSON file, run in the output directory, which takes its
+# histogram files; prints whether the rank is in the layout, then its
+# per-point counters as JSON
+RANK_SCRIPT = """
+import dataclasses, json, os, sys
+
+sys.path.insert(0, os.getcwd())
+import torch
+import torch.distributed as dist
+
+from kmldpc_torch.config import load_config
+from kmldpc_torch.parallel import maybe_initialize
+from kmldpc_torch.sim import Simulator
+from kmldpc_torch.utils import SimLogger
+
+torch.set_num_threads(1)
+over_path, out = sys.argv[1:]
+with open(over_path) as f:
+    over = json.load(f)
+cfg = load_config(over.pop("config"))
+for section, kv in over.items():
+    cfg = dataclasses.replace(cfg, **dict([(section, dataclasses.replace(
+        getattr(cfg, section), **kv))]))
+assert maybe_initialize("cpu")
+os.makedirs(out, exist_ok=True)
+os.chdir(out)
+sim = Simulator(cfg, SimLogger(log_dir=None, stdout=False), device="cpu")
+rows = [(r.snr, r.tot_blk, r.err_blk, r.err_bit, r.tot_bit, r.err_bit_sq)
+        for r in sim.simulate()]
+dist.barrier()
+sim.close()
+dist.destroy_process_group()
+print(sim.grid.active)
+print(json.dumps(rows))
+"""
+
+
+class _Killed(Exception):
+    pass
+
+
+def _sweep_counters(results) -> list:
+    return [[r.snr, r.tot_blk, r.err_blk, r.err_bit, r.tot_bit, r.err_bit_sq] for r in results]
+
+
+def _histograms(directory) -> dict:
+    return {p.name: p.read_bytes() for p in sorted(pathlib.Path(directory).glob("histogram_*"))}
+
+
+def _kill_after(sim, launches: int) -> None:
+    """Make ``sim``'s runner raise after ``launches`` calls."""
+    real, calls = sim.runner, []
+
+    def run(*args):
+        if len(calls) == launches:
+            raise _Killed()
+        calls.append(args)
+        return real(*args)
+
+    run.__dict__.update(real.__dict__)
+    sim.runner = run
+
+
+@pytest.fixture(scope="module")
+def dp_runs(tmp_path_factory):
+    """One process against ranks for ``data_parallel`` above the ranks:
+    sequential and folded histogram sweeps (no final decode) at
+    data_parallel = 2, one process and 2 ranks; the decoded sweep at
+    data_parallel = 2 in one process, and a checkpoint of it written by a
+    killed one-process run, resumed on 2 ranks; data_parallel = 4 on one
+    process and on 3 ranks (2 run, rank 2 idle)."""
+    from .test_torch_parallel import _launch_many
+
+    # one torch thread, as _one_thread gives each test (it runs after this)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield _dp_runs(tmp_path_factory, _launch_many)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _dp_runs(tmp_path_factory, _launch_many):
+    assets = REPO / "assets"
+    tmp = tmp_path_factory.mktemp("dp")
+    script = tmp / "rank.py"
+    script.write_text(RANK_SCRIPT)
+    runs = {
+        "seq": dict(data_parallel=2),
+        "folded": dict(data_parallel=2, snr_fold=2),
+        "plain": dict(data_parallel=2),
+        "resume": dict(data_parallel=2, checkpoint_path=str(tmp / "ck.json")),
+        "dp4": dict(data_parallel=4),
+    }
+    one = {}
+    for name, tpu in runs.items():
+        hist = name in ("seq", "folded")
+        over = dict(config=str(assets / "config.toml"), range=DP_SWEEP["range"],
+                    tpu={**DP_SWEEP["tpu"], **tpu}, histogram=dict(enable=hist))
+        (tmp / f"{name}.json").write_text(json.dumps(over))
+        cfg = _cfg(assets, range=over["range"], tpu=over["tpu"], histogram=over["histogram"])
+        here = tmp / "one" / name
+        here.mkdir(parents=True)
+        cwd = os.getcwd()
+        os.chdir(here)
+        try:
+            sim = Simulator(cfg, _quiet(), device="cpu")
+            if name == "resume":
+                _kill_after(sim, 5)  # the first point's 3 launches, two of the second's
+                with pytest.raises(_Killed):
+                    sim.simulate()
+                one[name] = json.loads((tmp / "ck.json").read_text())
+            else:
+                one[name] = (_sweep_counters(sim.simulate()), _histograms(here), sim)
+        finally:
+            os.chdir(cwd)
+    outs = _launch_many([
+        (2, [str(script), str(tmp / "seq.json"), str(tmp / "ranks" / "seq")]),
+        (2, [str(script), str(tmp / "folded.json"), str(tmp / "ranks" / "folded")]),
+        (2, [str(script), str(tmp / "resume.json"), str(tmp / "ranks" / "resume")]),
+        (3, [str(script), str(tmp / "dp4.json"), str(tmp / "ranks" / "dp4")]),
+    ])
+    ranks = {name: [o.splitlines() for o in out]
+             for name, out in zip(("seq", "folded", "resume", "dp4"), outs)}
+    return tmp, one, ranks
+
+
+@pytest.mark.parametrize("name", ["seq", "folded"])
+def test_data_parallel_above_the_ranks_is_the_ranked_run(dp_runs, name):
+    """data_parallel = 2 in one process (it raised before) runs the two data
+    shards in turn: its counters and histogram files (the metric table of
+    every block) are bitwise those of the same config on 2 ranks,
+    sequential and folded."""
+    tmp, one, ranks = dp_runs
+    counters, hist, sim = one[name]
+    assert (sim.ndata, sim.grid.ndata, sim.batch) == (2, 1, 16)
+    assert bool(sim.snr_fold) == (name == "folded")
+    assert [r[0] for r in ranks[name]] == ["True", "True"]
+    assert json.loads(ranks[name][0][1]) == counters
+    assert [c[1] for c in counters] == [96, 96]
+    assert len(hist) == 2 and _histograms(tmp / "ranks" / name) == hist
+    assert counters == one["seq"][0]
+
+
+def test_data_parallel_checkpoint_resumes_across_rank_counts(dp_runs):
+    """A checkpoint written mid-sweep by one process at data_parallel = 2
+    resumes on 2 ranks (the fingerprint names the shards, not the ranks)
+    and lands bitwise on the uninterrupted counters."""
+    tmp, one, ranks = dp_runs
+    saved = one["resume"]["snr"]
+    assert saved["8.000"]["done"] and not saved["10.000"]["done"]
+    assert saved["10.000"]["chunks"] == 1 and one["resume"]["fingerprint"].endswith("|2|1")
+    counters = one["plain"][0]
+    assert 0 < counters[0][2] < 96  # decoded: some blocks in error, not all
+    assert json.loads(ranks["resume"][0][1]) == counters
+    assert json.loads((tmp / "ck.json").read_text())["snr"]["10.000"]["done"]
+
+
+def test_data_parallel_four_shards_on_one_process_and_on_two_of_three_ranks(dp_runs):
+    """data_parallel = 4 in one process draws what make_chunk_runner(spec,
+    B/4, 4n) draws; on 3 ranks it runs on ranks 0-1 (two shards each) and
+    leaves rank 2 idle, with the one process's counters."""
+    tmp, one, ranks = dp_runs
+    counters, _, sim = one["dp4"]
+    assert (sim.ndata, sim.grid.ndata, sim.batch) == (4, 1, 16)
+    n = sim.cfg.tpu.chunks_per_launch
+    ref = make_chunk_runner(sim.spec, 4, 4 * n, "cpu", sim.cfg.tpu.seed)
+    ours, want = sim.runner(10.0, 1, 0.1), ref(10.0, 1, 0.1)
+    for field in ("err_bit", "err_blk", "tot_bit", "tot_blk", "err_bit_sq", "metrics"):
+        assert torch.equal(torch.as_tensor(getattr(ours, field)),
+                           torch.as_tensor(getattr(want, field))), field
+    assert [r[0] for r in ranks["dp4"]] == ["True", "True", "False"]
+    assert json.loads(ranks["dp4"][0][1]) == counters
+    assert json.loads(ranks["dp4"][2][1]) == []
 
 
 @pytest.mark.parametrize(
