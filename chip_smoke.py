@@ -79,6 +79,12 @@ Phases (any failure raises and exits non-zero):
    present, positive and finite, info bits/s = blocks/s x info bits, a
    positive factor, and K1's launches, counted row by row, above 0 on the
    8 blind rows and 0 on the 7 known-h rows;
+8d. bench: ``python -m kmldpc_torch.bench --cpl 1 --passes 1`` in a process
+   of its own at a budget of 0 s, so the calibration and the headline are
+   measured and the other 6 ranked rows print SKIPPED: the last stdout line
+   has bench.py's four keys with a positive, finite value and
+   vs_baseline, the headline's info bits/s = blocks/s x 1152, a positive
+   session factor, and the rows file written where it was told;
 9. profile: ``torch.profiler`` over one B = 1024 chunk of sweep 7 at 14 dB
    (blind 5G 16QAM, layered min-sum final and metric decodes), split by
    the chain's ``record_function`` labels;
@@ -817,6 +823,65 @@ def phase_chain(dev: torch.device, smi: str) -> dict:
     if failed:
         raise AssertionError("chain: " + "; ".join(failed))
     return launches
+
+
+# phase 8d, the port's bench cut in depth: one sub-chunk a launch (of 16)
+# and one pass (of 3); a budget of 0 s leaves the two mandatory rows
+BENCH_ARGS = ("--cpl", "1", "--passes", "1")
+BENCH_TIMEOUT_S = 300
+
+
+def phase_bench(smi: str) -> None:
+    """Phase 8d: ``python -m kmldpc_torch.bench`` at a cut depth
+    (BENCH_ARGS) in a process of its own, as a user runs it, its stderr
+    logged.  Host clock, beside the card."""
+    t0 = time.monotonic()
+    failed: list[str] = []
+    with tempfile.TemporaryDirectory() as tmp:
+        rows_path = os.path.join(tmp, "bench_rows.json")
+        out = subprocess.run(
+            [sys.executable, "-m", "kmldpc_torch.bench", *BENCH_ARGS, "--rows-out", rows_path],
+            capture_output=True, text=True, cwd=HERE, timeout=BENCH_TIMEOUT_S,
+            env=dict(os.environ, KMLDPC_BENCH_BUDGET_S="0"))
+        for line in out.stderr.splitlines():
+            log(f"bench {line}")
+        if out.returncode:
+            raise AssertionError(f"bench: exit {out.returncode}")
+        written = None
+        if os.path.exists(rows_path):
+            with open(rows_path) as f:
+                written = json.load(f)
+        else:
+            failed.append(f"no rows file at {rows_path}")
+    lines = out.stdout.splitlines()
+    log(f"bench stdout: {lines[-1] if lines else ''}")
+    line = json.loads(lines[-1]) if lines else {}
+    if list(line) != ["metric", "value", "unit", "vs_baseline"]:
+        failed.append(f"last stdout line {line}")
+    for k in ("value", "vs_baseline"):
+        if not (isinstance(line.get(k), (int, float)) and 0 < line[k] < float("inf")):
+            failed.append(f"{k} {line.get(k)}")
+    err = out.stderr.splitlines()
+    rows = {r["row"]: r for r in (json.loads(x.removeprefix("bench-row "))
+                                  for x in err if x.startswith("bench-row "))}
+    if list(rows) != ["PEG2304+QPSK/known", "PEG2304+QPSK/blind"]:
+        failed.append(f"rows {list(rows)}")
+    if sum(x.startswith("bench: SKIPPED ") for x in err) != 6:
+        failed.append("not 6 SKIPPED rows")
+    head = rows.get("PEG2304+QPSK/blind", {})
+    bps = head.get("blocks_per_s", 0.0)
+    # both rounded to 0.1 from one blk/s
+    if abs(head.get("info_bits_per_s", -1.0) - bps * INFO_BITS) > 0.05 * INFO_BITS + 0.05:
+        failed.append(f"headline info bits/s {head.get('info_bits_per_s')} against {bps} blk/s")
+    if line.get("value") != head.get("info_bits_per_s"):
+        failed.append(f"value {line.get('value')} is not the headline's info bits/s")
+    factor = (written or {}).get("_calibration", {}).get("factor")
+    if not (isinstance(factor, float) and 0 < factor < float("inf")):
+        failed.append(f"calibration factor {factor}")
+    log(f"bench phase: {time.monotonic() - t0:.3f} s (python -m kmldpc_torch.bench "
+        f"{' '.join(BENCH_ARGS)}, budget 0 s) host clock on {smi}")
+    if failed:
+        raise AssertionError("bench: " + "; ".join(failed))
 
 
 LABELS = ("frontend", "kmeans", "metric", "demap", "decode", "counters")
@@ -1907,6 +1972,7 @@ def main(argv: list[str] | None = None) -> int:
     phase_bf16(dev)
     phase_tools(dev, smi)
     k1_chain = phase_chain(dev, smi)
+    phase_bench(smi)
     phase_profile(dev)
     phase_profile_dir(dev)
     k1_ranks, k1_campaign = phase_multi_rank(dev, smi)

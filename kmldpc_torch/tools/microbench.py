@@ -80,11 +80,14 @@ def _save(results: dict, path: str | None) -> None:
         os.replace(tmp, path)
 
 
-def _fence(acc: torch.Tensor) -> None:
+def fence(acc: torch.Tensor) -> None:
     """Wait for the work ``acc`` depends on: CUDA kernels run behind the
-    host, CPU ones before the call returns."""
+    host, so sync the card; CPU ones ran before the call returned, and
+    reading the value is enough."""
     if acc.device.type == "cuda":
         torch.cuda.synchronize(acc.device)
+    else:
+        acc.item()
 
 
 def steady(fn: Callable[[int], torch.Tensor], n1: int = 6, n2: int | None = None,
@@ -110,7 +113,7 @@ def steady(fn: Callable[[int], torch.Tensor], n1: int = 6, n2: int | None = None
         acc = fn(base)
         for i in range(1, n):
             acc = acc + fn(base + i)
-        _fence(acc)
+        fence(acc)
         return time.perf_counter() - t0
 
     prev = None
@@ -254,16 +257,17 @@ def bench_kmeans(results: dict, batch: int = 1024, nsym: int = 1152, passes: int
                   f"(B={batch}, {n} sym)", file=sys.stderr)
 
 
-def _chain_call(row: ChainRow, batch: int, cpl: int, device: torch.device,
-                seed: int) -> tuple[Callable[[int], torch.Tensor], int]:
+def chain_call(row: ChainRow, batch: int, cpl: int, device: torch.device,
+               seed: int, dtype: str = "float32") -> tuple[Callable[[int], torch.Tensor], int]:
     """``(call, code_dim)`` of one chain row: ``call(i)`` runs launch ``i``
     of ``cpl`` sub-chunks of ``batch`` codewords at the row's SNR and
-    returns its block errors, a 0-d tensor."""
+    returns its block errors, a 0-d tensor.  ``dtype`` is the message
+    storage a row without its own takes."""
     import numpy as np
 
     from ..sim import make_chunk_runner
 
-    spec = make_spec(row, ASSETS)
+    spec = make_spec(row, ASSETS, dtype=dtype)
     runner = make_chunk_runner(spec, batch, cpl, device, seed=seed)
     var = float(np.float32(10.0 ** (-0.1 * row.snr_db)))
     return (lambda i: runner(row.snr_db, i, var).err_blk), spec.code.code_dim
@@ -283,7 +287,7 @@ def run_calibration(results: dict, passes: int = 3, device: torch.device | str =
     """
     r = calibration_row()
     cpl = cpl or r.cpl
-    call, _ = _chain_call(r, r.batch, cpl, resolve_device(device), seed=42)
+    call, _ = chain_call(r, r.batch, cpl, resolve_device(device), seed=42)
     sec, spread = steady(call, n1, n2, passes)
     blk_s = r.batch * cpl / sec
     factor = blk_s / CAL_NOMINAL_BLK_S
@@ -326,7 +330,7 @@ def bench_chain(results: dict, only: str | None = None, passes: int = 3,
             continue
         b = batch or r.batch or 1024
         n = cpl or r.cpl or 16
-        call, code_dim = _chain_call(r, b, n, device, seed=0)
+        call, code_dim = chain_call(r, b, n, device, seed=0)
         sec, spread = steady(call, n1, n2, passes)
         blk_s = b * n / sec
         results[f"chain/{r.name}"] = {
