@@ -171,9 +171,11 @@ class TpuConfig:
     # (simulator.cc:124-126, kmcodec.cc:64,132-137) — for the first N
     # blocks of the first launch of each SNR point, to the logfile only.
     debug_blocks: int = 0
-    # jax.profiler trace output directory ("" disables). The reference has
-    # wall-clock timing only (kmldpc.cpp:11-12); this captures full XLA
-    # traces viewable in TensorBoard/Perfetto.
+    # torch.profiler trace output directory ("" disables). The reference has
+    # wall-clock timing only (kmldpc.cpp:11-12); this writes one chrome
+    # trace a sweep, host and device on one timeline, with the chain's
+    # labels and the program's spans (utils/trace.py), viewable in Perfetto
+    # or chrome://tracing.
     profile_dir: str = ""
 
 

@@ -30,6 +30,7 @@ import torch
 from .. import constants
 from ..code.ldpc import LDPCCode
 from ..device import resolve_device
+from ..utils.trace import count, exit_check
 
 # Guard for phi(0) = inf.  Must stay >= ~1e-6: below that exp(-x) rounds to
 # exactly 1.0 in f32 and log1p(-exp(-x)) returns -inf.
@@ -298,8 +299,10 @@ def flooding_decode(t: DecoderTables, chan_llr: torch.Tensor, iter_count: int) -
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
     ss = torch.ones((b, t.num_row), dtype=torch.float32, device=dev)
-    for _ in range(iter_count):
-        if bool(conv.all()):
+    ran = iter_count
+    for i in range(iter_count):
+        if exit_check(conv):
+            ran = i
             break
         v2c, hard = vn_pass(c2v)
         cc_hat = torch.where(conv[:, None], cc_hat, hard)
@@ -311,6 +314,7 @@ def flooding_decode(t: DecoderTables, chan_llr: torch.Tensor, iter_count: int) -
         c2v = torch.where(conv_after[:, None], c2v, c2v_new)
         ss = torch.where(conv_after[:, None], ss, ss_new)
         conv = conv_after
+    count("cw_iters_run", b * ran)
     uu_hat = cc_hat[:, t.info_start : t.info_start + t.code_dim]
     return DecodeResult(uu_hat, cc_hat, conv, iters, ss)
 

@@ -30,6 +30,7 @@ from typing import Callable
 import torch
 
 from .. import constants
+from ..utils.trace import count, exit_check, span
 from .bp import PHI_ARG_MIN, DecodeResult, DecoderTables, phi
 
 
@@ -136,8 +137,10 @@ def _decode_cols_padded(
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
     ss = torch.ones((nr, b), dtype=torch.float32, device=dev)
+    ran = iter_count
     for i in range(iter_count):
-        if i > 0 and i % exit_check_every == 0 and bool(conv.all()):
+        if i > 0 and i % exit_check_every == 0 and exit_check(conv):
+            ran = i
             break
         # --- variable nodes on the column-gathered view ---
         c2v_col = c2v.reshape(-1, b)[t.perm_sm_c2r].reshape(dc, nc, b).to(torch.float32)
@@ -154,6 +157,7 @@ def _decode_cols_padded(
         c2v_new, ss_new = _cn(post_edge - c2v.to(torch.float32), cn_rule, alpha, llr_clip)
         c2v = c2v_new.to(msg_dtype)
         ss = torch.where(conv[None, :], ss, ss_new)
+    count("cw_iters_run", b * ran)
     uu_hat = cc_hat[t.info_start : t.info_start + t.code_dim]
     return DecodeResult(uu_hat, cc_hat, conv, iters, ss)
 
@@ -185,8 +189,10 @@ def _decode_cols_classes(
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
     ss = torch.ones((nr, b), dtype=torch.float32, device=dev)
+    ran = iter_count
     for i in range(iter_count):
-        if i > 0 and i % exit_check_every == 0 and bool(conv.all()):
+        if i > 0 and i % exit_check_every == 0 and exit_check(conv):
+            ran = i
             break
         # --- variable nodes per column class on the column-flat view ---
         c2v_col = c2v[t.perm_cf_c2r].to(torch.float32)  # [E, B]
@@ -213,6 +219,7 @@ def _decode_cols_classes(
             sss.append(ss_blk)
         c2v = torch.cat(news)
         ss = torch.where(conv[None, :], ss, torch.cat(sss))
+    count("cw_iters_run", b * ran)
     cc_orig = cc_hat[t.col_unsort]  # undo the degree sort
     uu_hat = cc_orig[t.info_start : t.info_start + t.code_dim]
     return DecodeResult(uu_hat, cc_orig, conv, iters, ss[t.row_unsort])
@@ -262,16 +269,20 @@ def two_phase_generic(
     tile = min(max(8, tile), b)
     if tile >= b or phase1_iters >= iter_count:
         return decode(chan_llr, iter_count)
-    uu_hat, cc_hat, conv, iters, ss = decode(chan_llr, phase1_iters)
-    # unconverged (0) first; argsort does not take bool on every device
-    order = torch.argsort(conv.to(torch.int32), stable=True)
-    n_unconv = int((~conv).sum())
+    with span("decode.phase1"):
+        uu_hat, cc_hat, conv, iters, ss = decode(chan_llr, phase1_iters)
+    with span("decode.sort"):
+        # unconverged (0) first; argsort does not take bool on every device
+        order = torch.argsort(conv.to(torch.int32), stable=True)
+        count("syncs")
+        n_unconv = int((~conv).sum())
     for start in range(0, n_unconv, tile):
-        idx = order[min(start, b - tile) :][:tile]
-        sub = decode(chan_llr[idx], iter_count)
-        uu_hat[idx] = sub.uu_hat
-        cc_hat[idx] = sub.cc_hat
-        conv[idx] = sub.converged
-        iters[idx] = sub.iters
-        ss[idx] = sub.soft_syndrome
+        with span("decode.tile"):
+            idx = order[min(start, b - tile) :][:tile]
+            sub = decode(chan_llr[idx], iter_count)
+            uu_hat[idx] = sub.uu_hat
+            cc_hat[idx] = sub.cc_hat
+            conv[idx] = sub.converged
+            iters[idx] = sub.iters
+            ss[idx] = sub.soft_syndrome
     return DecodeResult(uu_hat, cc_hat, conv, iters, ss)

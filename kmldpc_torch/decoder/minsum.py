@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..code.ldpc import LDPCCode
+from ..utils.trace import count, exit_check
 from .bp import DecodeResult, DecoderTables, channel_llr_to_columns, count_failed_checks
 from .bp_em import _cn_minsum, _llr_clip
 
@@ -198,8 +199,10 @@ def _decode_qc(mt: MinsumTables, chan_llr: torch.Tensor, iter_count: int,
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
     ss = torch.ones((t.num_row, b), dtype=torch.float32, device=dev)
+    ran = iter_count
     for i in range(iter_count):
-        if i > 0 and i % EXIT_CHECK_EVERY == 0 and bool(conv.all()):
+        if i > 0 and i % EXIT_CHECK_EVERY == 0 and exit_check(conv):
+            ran = i
             break
         ss_parts = []
         for layer, (cols, old) in enumerate(zip(mt.qc_cols, c2v)):
@@ -214,6 +217,7 @@ def _decode_qc(mt: MinsumTables, chan_llr: torch.Tensor, iter_count: int,
         conv = conv | ok
         # layer l holds rows l*Z .. (l+1)*Z - 1
         ss = torch.where(conv[None, :], ss, torch.cat(ss_parts))
+    count("cw_iters_run", b * ran)
     return _result(t, cc_hat, conv, iters, ss)
 
 
@@ -235,8 +239,10 @@ def _decode_generic(mt: MinsumTables, chan_llr: torch.Tensor, iter_count: int,
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
     ss = torch.ones((nr, b), dtype=torch.float32, device=dev)
+    ran = iter_count
     for i in range(iter_count):
-        if i > 0 and i % EXIT_CHECK_EVERY == 0 and bool(conv.all()):
+        if i > 0 and i % EXIT_CHECK_EVERY == 0 and exit_check(conv):
+            ran = i
             break
         post_new, c2v_new = post, c2v
         ss_layers = []
@@ -270,4 +276,5 @@ def _decode_generic(mt: MinsumTables, chan_llr: torch.Tensor, iter_count: int,
         post = torch.where(conv[None, :], post, post_new)
         c2v = torch.where(conv[None, :], c2v, c2v_new)
         ss = torch.where(conv[None, :], ss, ss_new)
+    count("cw_iters_run", b * ran)
     return _result(t, cc_hat, conv, iters, ss)

@@ -48,6 +48,7 @@ from ..decoder.bp_em import _batch_major, _cn, _insert_punct, _llr_clip, two_pha
 from ..device import resolve_device
 from ..params import make_chain_params
 from ..sim.chain import ChainSpec, ChunkResult, build_chain_fn
+from ..utils.trace import count, exit_check
 from .distributed import Grid, all_gather_cat, all_reduce
 from .sharding import sharded_launch_fn
 
@@ -116,9 +117,11 @@ class _Slab:
         iters = torch.zeros((b,), dtype=torch.int32, device=dev)
         ss = torch.ones((nrd, b), dtype=torch.float32, device=dev)
         ones = torch.ones((1, b), dtype=torch.float32, device=dev)
+        ran = iter_count
         for i in range(iter_count):
             # conv comes from all-reduced counts: every model rank exits together
-            if i > 0 and i % exit_check_every == 0 and bool(conv.all()):
+            if i > 0 and i % exit_check_every == 0 and exit_check(conv):
+                ran = i
                 break
             # --- exact partial column sums, ONE all-reduce -> full posterior ---
             fixed = torch.round(c2v * _FIX_SCALE).to(torch.int64).reshape(-1, b)
@@ -137,6 +140,7 @@ class _Slab:
             c2v_new, ss_new = _cn(post_edge - c2v, cn_rule, alpha, llr_clip, self.mask)
             c2v = c2v_new * self.mask
             ss = torch.where(conv[None, :], ss, ss_new)
+        count("cw_iters_run", b * ran)
         return cc_hat, conv, iters, ss
 
     def decode(self, chan_llr: torch.Tensor, iter_count: int, cn_rule: str,

@@ -12,9 +12,10 @@ test can inject the JAX package's channel outputs into the port's back end.
 Known-h runs the same back end without detection.  PyTorch runs eagerly;
 the harness (montecarlo.py) calls the chain once per sub-chunk, and the
 multi-point runner runs several whole launches (one per SNR point) per
-call.  Each layer runs under a ``record_function`` label (frontend,
-kmeans, metric, demap, decode, counters), so a ``torch.profiler`` trace
-splits the chain's time by layer.
+call.  Each layer runs under a label (frontend, kmeans, metric, demap,
+decode, counters; ``utils/trace.py``): a ``record_function`` span while a
+``torch.profiler`` records, so a trace splits the chain's time by layer,
+and the stage the decoders' counters count under.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from ..code.ldpc import LDPCCode
 from ..config import Config
@@ -40,6 +40,7 @@ from ..ops.encode import make_encoder
 from ..ops.modem import ModemTables, make_mapper, make_soft_demapper
 from ..ops.source import chunk_seed, make_generator, random_bits
 from ..params import ChainParams, make_chain_params
+from ..utils.trace import label
 
 
 class ChunkResult(NamedTuple):
@@ -148,7 +149,7 @@ def build_frontend_fn(
     map_bits = make_mapper(tables)
 
     def frontend(params: ChainParams, gen: torch.Generator, var: torch.Tensor):
-        with record_function("frontend"):
+        with label("frontend"):
             return draw(params, gen, var)
 
     def draw(params: ChainParams, gen: torch.Generator, var: torch.Tensor):
@@ -238,7 +239,7 @@ def build_backend_fn(
             if spec.histogram:
                 # one metric per block, over the single candidate true h;
                 # columns 1-3 are NaN, dropped by the histogram writer
-                with record_function("metric"):
+                with label("metric"):
                     h1_r = torch.stack([hr_true] * 4, dim=1)
                     h1_i = torch.stack([hi_true] * 4, dim=1)
                     _, _, m4, _ = select(sel_tabs, yr, yi, h1_r, h1_i, var)
@@ -246,14 +247,14 @@ def build_backend_fn(
                     metrics = torch.cat([m4[:, :1], nan], dim=1)
             else:
                 metrics = torch.zeros((batch, 4), dtype=torch.float32, device=yr.device)
-                with record_function("demap"):
+                with label("demap"):
                     _, chan_llr = demap(yr, yi, hr_true, hi_true, var)
         else:
-            with record_function("kmeans"):
+            with label("kmeans"):
                 h4_r, h4_i, *diag = estimate(yr, yi)
             if diag:
                 kmeans_diag = (yr, yi, *diag, h4_r, h4_i, hr_true, hi_true)
-            with record_function("metric"):
+            with label("metric"):
                 _, _, metrics, chan_llr = select(sel_tabs, yr, yi, h4_r, h4_i, var)
         if spec.debug_blocks > 0:
             debug = (hr_true, hi_true) if spec.known_h else (hr_true, hi_true, h4_r, h4_i)
@@ -262,7 +263,7 @@ def build_backend_fn(
             uu_hat = torch.zeros_like(uu)
             iters = torch.zeros((), dtype=torch.float32, device=yr.device)
         else:
-            with record_function("decode"):
+            with label("decode"):
                 if decode is not None:
                     raw = decode(chan_llr, spec.max_iter)
                 else:
@@ -271,7 +272,7 @@ def build_backend_fn(
                         chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters, tile=tile,
                     )
             uu_hat, iters = raw.uu_hat, raw.iters.to(torch.float32).mean()
-        with record_function("counters"):
+        with label("counters"):
             errs = (uu != uu_hat).sum(dim=1, dtype=torch.int32)  # [B]
             errs_f = errs.to(torch.float32)
             return ChunkResult(

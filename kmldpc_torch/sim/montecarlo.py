@@ -47,6 +47,7 @@ from ..device import resolve_device
 from ..io.constellation import parse_constellation
 from ..parallel.distributed import Grid, data_ranks, is_primary, layout, world_size
 from ..utils.logging import SimLogger
+from ..utils.trace import count, snapshot, span
 from .chain import ChainSpec, ChunkResult, make_chunk_runner, make_multi_point_runner
 
 
@@ -113,6 +114,10 @@ class Simulator:
         device: torch.device | str = "cuda",
         runner_factory=None,
     ) -> None:
+        with span("harness.build"):
+            self._build(cfg, logger, device, runner_factory)
+
+    def _build(self, cfg: Config, logger, device, runner_factory) -> None:
         tpu = cfg.tpu
         self.cfg = cfg
         self.log = logger or SimLogger(log_dir=None)
@@ -223,10 +228,11 @@ class Simulator:
         path = self._ckpt_path()
         if not path or not self.primary:
             return
-        tmp = path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(state, f)
-        os.replace(tmp, path)
+        with span("harness.checkpoint"):
+            tmp = path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(state, f)
+            os.replace(tmp, path)
 
     def _load_ckpt(self) -> dict:
         path = self._ckpt_path()
@@ -294,34 +300,35 @@ class Simulator:
         km_dump_pending = bool(cfg.tpu.kmeans_dump_dir) and self.spec.kmeans_dump
         debug_pending = self.spec.debug_blocks > 0
         device_of_counters = None
+        before = snapshot()
 
         def consume(res: ChunkResult) -> None:
             nonlocal last_print, km_dump_pending, debug_pending, device_of_counters
-            device_of_counters = res.err_bit.device
-            if km_dump_pending and res.kmeans_diag:
-                if self.primary:
-                    self._dump_kmeans(snr, res)
-                km_dump_pending = False  # first launch of the point only
-            if debug_pending and res.debug:
-                self._log_debug_blocks(res, c.tot_blk)
-                debug_pending = False  # first launch of the point only
-            c.chunks += 1  # consumed launches: the checkpoint/resume cursor
-            c.err_bit += int(res.err_bit)
-            c.err_blk += int(res.err_blk)
-            c.tot_bit += int(res.tot_bit)
-            c.tot_blk += int(res.tot_blk)
-            c.err_bit_sq += float(res.err_bit_sq)
-            if histogram_file is not None:
-                self._write_histogram(histogram_file, _np(res.metrics))
-            self.log.info(
-                f"chunk {c.chunks}: mean BP iters = {float(res.iters):.2f}",
-                to_stdout=False,
-            )
-            if c.tot_blk - last_print >= 100 or c.tot_blk >= max_blk or c.err_blk >= max_err:
-                self._print_result(snr, c)
-                last_print = c.tot_blk
-            if save_partial is not None:
-                save_partial(c)
+            with span("harness.consume"):
+                device_of_counters = res.err_bit.device
+                if km_dump_pending and res.kmeans_diag:
+                    if self.primary:
+                        self._dump_kmeans(snr, res)
+                    km_dump_pending = False  # first launch of the point only
+                if debug_pending and res.debug:
+                    self._log_debug_blocks(res, c.tot_blk)
+                    debug_pending = False  # first launch of the point only
+                c.chunks += 1  # consumed launches: the checkpoint/resume cursor
+                c.err_bit += int(res.err_bit)
+                c.err_blk += int(res.err_blk)
+                c.tot_bit += int(res.tot_bit)
+                c.tot_blk += int(res.tot_blk)
+                c.err_bit_sq += float(res.err_bit_sq)
+                if histogram_file is not None:
+                    self._write_histogram(histogram_file, _np(res.metrics))
+                iters = float(res.iters)
+                self._count_launch(iters, int(res.tot_blk))
+                self.log.info(f"chunk {c.chunks}: mean BP iters = {iters:.2f}", to_stdout=False)
+                if c.tot_blk - last_print >= 100 or c.tot_blk >= max_blk or c.err_blk >= max_err:
+                    self._print_result(snr, c)
+                    last_print = c.tot_blk
+                if save_partial is not None:
+                    save_partial(c)
 
         # `launched` leads `c.chunks` (consumed) by the in-flight launch; a
         # resume from c.chunks consumed launches re-issues the lost
@@ -349,6 +356,7 @@ class Simulator:
             f"SNR = {snr:.3f} done: {c.tot_blk} blocks in {wall:.6f} s = "
             f"{bps:.1f} blocks/s, counters on {device_of_counters}"
         )
+        self._log_counters(f"SNR = {snr:.3f}", before)
         return SnrResult(
             snr=snr, ber=c.ber, fer=c.fer, tot_blk=c.tot_blk, err_blk=c.err_blk,
             err_bit=c.err_bit, tot_bit=c.tot_bit, wall_s=wall, blocks_per_s=bps,
@@ -429,6 +437,28 @@ class Simulator:
                 f"hatIndex = {int(np.argmin(metrics[j]))}", to_stdout=False
             )
 
+    def _count_launch(self, mean_iters: float, blocks: int) -> None:
+        """Counts a consumed launch under ``harness.launches``, and its
+        needed codeword-iterations (this rank's share: the mean is over the
+        data ranks' blocks) under ``decode.cw_iters_needed``."""
+        count("launches", stage="harness")
+        count("cw_iters_needed", round(mean_iters * blocks / self.grid.ndata), stage="decode")
+
+    def _log_counters(self, what: str, before: dict) -> None:
+        """The decode's and the metric stage's counters since ``before``
+        (a ``snapshot()``), to the log file only: codeword-iterations run
+        and needed, their ratio, and host syncs."""
+        now = snapshot()
+        d = {k: v - before.get(k, 0) for k, v in now.items()}
+        run, needed = d.get("decode.cw_iters_run", 0), d.get("decode.cw_iters_needed", 0)
+        self.log.info(
+            f"{what} counters: decode cw_iters_run = {run} cw_iters_needed = {needed} "
+            f"needed/run = {needed / run if run else 0.0:.4f} syncs = {d.get('decode.syncs', 0)}; "
+            f"metric cw_iters_run = {d.get('metric.cw_iters_run', 0)} "
+            f"syncs = {d.get('metric.syncs', 0)}",
+            to_stdout=False,
+        )
+
     def _print_result(self, snr: float, c: _Counters) -> None:
         # sourcesink.cc:49-65 format
         self.log.info(
@@ -505,6 +535,7 @@ class Simulator:
         max_blk = cfg.range.maximum_block_number
         max_err = cfg.range.maximum_error_number
         t0 = time.monotonic()
+        before = snapshot()
 
         points = cfg.snr_points()
         cs: dict[float, _Counters] = {}
@@ -552,53 +583,55 @@ class Simulator:
 
         def consume(dispatch) -> None:
             nonlocal t_mark
-            slots, res = dispatch
-            err_bit, err_blk, tot_bit, tot_blk, err_sq, iters = (
-                _np(a) for a in (res.err_bit, res.err_blk, res.tot_bit, res.tot_blk,
-                                 res.err_bit_sq, res.iters))
-            now = time.monotonic()
-            n_valid = sum(1 for _, v in slots if v)
-            dt_slot = (now - t_mark) / n_valid if n_valid else 0.0
-            t_mark = now
-            for j, (snr, valid) in enumerate(slots):
-                if not valid:
-                    # dead padding slot: discarded; it never incremented
-                    # inflight, so it must not decrement it either (that
-                    # re-opened capped points through wants() and made the
-                    # dispatch loop run away)
-                    continue
-                inflight[snr] -= 1
-                wall_attr[snr] += dt_slot
-                c = cs[snr]
-                c.chunks += 1
-                c.err_bit += int(err_bit[j])
-                c.err_blk += int(err_blk[j])
-                c.tot_bit += int(tot_bit[j])
-                c.tot_blk += int(tot_blk[j])
-                c.err_bit_sq += float(err_sq[j])
-                if cfg.histogram.enable and self.primary:
-                    f = hist_files.get(snr)
-                    if f is None:
-                        f = hist_files[snr] = open(f"histogram_{snr:.6f}.txt", "w")
-                    self._write_histogram(f, _np(res.metrics[j]))
-                if debug_pending[snr] and res.debug:
-                    # first consumed launch of the point only, like the
-                    # sequential path
-                    self._log_debug_blocks(res, c.tot_blk - int(tot_blk[j]), slot=j)
-                    debug_pending[snr] = False
-                self.log.info(
-                    f"chunk {c.chunks} [snr {snr:.3f}]: "
-                    f"mean BP iters = {float(iters[j]):.2f}",
-                    to_stdout=False,
-                )
-                if (c.tot_blk - last_print[snr] >= 100 or c.tot_blk >= max_blk
-                        or c.err_blk >= max_err):
-                    self._print_result(snr, c)
-                    last_print[snr] = c.tot_blk
+            with span("harness.consume"):
+                slots, res = dispatch
+                err_bit, err_blk, tot_bit, tot_blk, err_sq, iters = (
+                    _np(a) for a in (res.err_bit, res.err_blk, res.tot_bit, res.tot_blk,
+                                     res.err_bit_sq, res.iters))
+                now = time.monotonic()
+                n_valid = sum(1 for _, v in slots if v)
+                dt_slot = (now - t_mark) / n_valid if n_valid else 0.0
+                t_mark = now
+                for j, (snr, valid) in enumerate(slots):
+                    if not valid:
+                        # dead padding slot: discarded; it never incremented
+                        # inflight, so it must not decrement it either (that
+                        # re-opened capped points through wants() and made the
+                        # dispatch loop run away)
+                        continue
+                    inflight[snr] -= 1
+                    wall_attr[snr] += dt_slot
+                    c = cs[snr]
+                    c.chunks += 1
+                    c.err_bit += int(err_bit[j])
+                    c.err_blk += int(err_blk[j])
+                    c.tot_bit += int(tot_bit[j])
+                    c.tot_blk += int(tot_blk[j])
+                    c.err_bit_sq += float(err_sq[j])
+                    if cfg.histogram.enable and self.primary:
+                        f = hist_files.get(snr)
+                        if f is None:
+                            f = hist_files[snr] = open(f"histogram_{snr:.6f}.txt", "w")
+                        self._write_histogram(f, _np(res.metrics[j]))
+                    if debug_pending[snr] and res.debug:
+                        # first consumed launch of the point only, like the
+                        # sequential path
+                        self._log_debug_blocks(res, c.tot_blk - int(tot_blk[j]), slot=j)
+                        debug_pending[snr] = False
+                    self._count_launch(float(iters[j]), int(tot_blk[j]))
+                    self.log.info(
+                        f"chunk {c.chunks} [snr {snr:.3f}]: "
+                        f"mean BP iters = {float(iters[j]):.2f}",
+                        to_stdout=False,
+                    )
+                    if (c.tot_blk - last_print[snr] >= 100 or c.tot_blk >= max_blk
+                            or c.err_blk >= max_err):
+                        self._print_result(snr, c)
+                        last_print[snr] = c.tot_blk
+                    if self._ckpt_path():
+                        save_point(snr)
                 if self._ckpt_path():
-                    save_point(snr)
-            if self._ckpt_path():
-                self._save_ckpt(state)
+                    self._save_ckpt(state)
 
         rr = 0  # round-robin cursor over points
         pending: list = []
@@ -661,6 +694,7 @@ class Simulator:
             ))
         if self._ckpt_path():
             self._save_ckpt(state)
+        self._log_counters(f"SNR-fold sweep of {len(points)} points", before)
         self._print_tables(results)
         return results
 
