@@ -27,10 +27,18 @@ Phases (any failure raises and exits non-zero):
    early exit, each beside the bound, with the spread of the passes the
    rows ran; the kernel alone also at B = 132 and 4096 beside the rows an
    SM holds at once;
+3b. K2 against its plain version (the slot-major core) on known-h QPSK
+   LLRs: PEG2304 at 12.5 dB, B = 16384 (the main path's cell), PEG8064 at
+   17.5 dB, B = 2048, by the cell's [check] limits (rows whose iterations
+   differ at most 0.002, whose decisions differ at most 0.005, soft p90 at
+   most 0.001), two launches bitwise equal; CUDA events time the kernel
+   alone, the wrapper, the plain core single-phase and the eager two-phase
+   decode the chain ran before K2, beside the bound and the codewords an
+   SM holds;
 4. main path: ``kmldpc_torch.__main__.main`` on
-   configs/main_path_blind_qpsk.toml restricted to 15 dB, with K1's launch
-   count reset just before and read just after, then the same point three
-   more times, warm, for its blocks/s;
+   configs/main_path_blind_qpsk.toml restricted to 15 dB, with K1's and
+   K2's launch counts reset just before and read just after, then the same
+   point three more times, warm, for its blocks/s;
 5. parity: the full 7-point sweep of that config, blind and known-h
    (sequential), then all eleven sweeps of benchmarks/parity/configs in
    one call of ``kmldpc_torch.campaign.run_campaign``, which writes one
@@ -491,9 +499,146 @@ def phase_k1(dev: torch.device, ops_rate: float) -> dict:
     return dict(max_abs_err=worst, times=times)
 
 
-def phase_main_path(card: str, dev: torch.device) -> int:
+K2_CASES = (  # (code, SNR of the known-h QPSK link in dB, B): the main path's shape at
+    # a mid-grid point of linkbench's cell, and sweep 5's code at its first point
+    ("PEG2304regular0.5.txt", 12.5, 16384),
+    ("PEG8064regular0.5.txt", 17.5, 2048),
+)
+# K2's least time: 8 operations an edge an iteration (linkbench/roofline.py's
+# count of the sum-product rule) for the iterations each codeword ran; its
+# bytes are the LLRs read once and cc_hat, converged, iters and the soft
+# syndrome written once
+DECODE_OPS_PER_EDGE = 8
+K2_LIMITS = dict(iters=0.002, decided=0.005, soft=0.001)  # the cell's [check] limits
+
+
+def k2_bound_ms(t, b: int, iters: float, ops_rate: float) -> tuple[float, str]:
+    """K2's least time for B codewords that ran ``iters`` iterations in all."""
+    ops_s = DECODE_OPS_PER_EDGE * t.num_edges * iters / ops_rate
+    bytes_s = b * (4 * (t.num_col - t.punct) + t.num_col + 1 + 4 + 4 * t.num_row) / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def _k2_gaps(k2, plain) -> dict:
+    """The share of rows whose iterations or convergence differ, whose
+    decisions differ, and the 90th percentile of each row's largest
+    soft-syndrome difference (1 where the rows decode apart)."""
+    iters_apart = (k2.iters != plain.iters) | (k2.converged != plain.converged)
+    decided_apart = (k2.cc_hat != plain.cc_hat).any(dim=1)
+    ss_err = (k2.soft_syndrome - plain.soft_syndrome).abs().amax(dim=1)
+    ss_err = torch.where(decided_apart | iters_apart, 1.0, ss_err)
+    return dict(iters=float(iters_apart.float().mean()),
+                decided=float(decided_apart.float().mean()),
+                soft=float(torch.quantile(ss_err, 0.9)))
+
+
+def phase_k2(dev: torch.device, ops_rate: float) -> dict:
+    """Kernel K2 against its plain version and the eager two-phase decode
+    the chain ran before it, then timed."""
+    import ctypes
+
+    from kmldpc_torch import _build, constants
+    from kmldpc_torch.code import load_code
+    from kmldpc_torch.decoder import bp_cuda, flooding_decode_em, two_phase_generic
+    from kmldpc_torch.decoder.bp import PHI_ARG_MIN
+    from kmldpc_torch.decoder.bp_em import _batch_major, _decode_cols_padded
+    from kmldpc_torch.io import parse_constellation
+    from kmldpc_torch.ops.modem import ModemTables, make_soft_demapper
+    from kmldpc_torch.ops.source import make_generator
+    from kmldpc_torch.params import make_chain_params
+    from kmldpc_torch.sim.chain import ChainSpec, build_frontend_fn
+
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    const = parse_constellation(os.path.join(HERE, "assets", "2bits_QPSK.txt"))
+    result = {}
+    for code_file, snr, b in K2_CASES:
+        code = load_code(os.path.join(HERE, "assets", code_file))
+        label = code_file.split("regular")[0]
+        spec = ChainSpec(code=code, constellation=const, known_h=True, fading=True,
+                         metric_type=False, metric_iter=5, max_iter=50, encoder_active=True)
+        var = torch.tensor(10.0 ** (-0.1 * snr), dtype=torch.float32, device=dev)
+        params = make_chain_params(code, dev)
+        t = params.dec
+        _, yr, yi, hr, hi = build_frontend_fn(spec, b, dev)(params, make_generator(11, dev), var)
+        _, llr = make_soft_demapper(ModemTables.from_constellation(const, dev))(
+            yr, yi, hr, hi, var)
+        llr = llr.contiguous()
+        k2 = flooding_decode_em(t, llr, spec.max_iter)
+        again = flooding_decode_em(t, llr, spec.max_iter)
+        plain = _batch_major(_decode_cols_padded(t, llr.T.contiguous(), spec.max_iter))
+        tile = max(8, b // 8)
+
+        def eager():
+            return two_phase_generic(
+                lambda x, n: _batch_major(_decode_cols_padded(t, x.T.contiguous(), n)),
+                llr, spec.max_iter, spec.phase1_iters, tile)
+
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(k2, again)):
+            raise AssertionError(f"K2 {label}: two launches differ")
+        gaps = _k2_gaps(k2, plain)
+        if any(gaps[k] > lim for k, lim in K2_LIMITS.items()):
+            raise AssertionError(f"K2 {label} {snr:g} dB against its plain version: {gaps}, "
+                                 f"limits {K2_LIMITS}")
+        bitwise = all(torch.equal(a, c) for a, c in zip(k2, plain))
+        iters = float(k2.iters.sum())
+        outs = (torch.empty((b, t.num_col), dtype=torch.int8, device=dev),
+                torch.empty((b,), dtype=torch.bool, device=dev),
+                torch.empty((b,), dtype=torch.int32, device=dev),
+                torch.empty((b, t.num_row), dtype=torch.float32, device=dev))
+        args = (llr.data_ptr(), t.perm_sm_c2r32.data_ptr(), t.row_col_sm32.data_ptr(),
+                *(o.data_ptr() for o in outs), b, t.num_col, t.num_row, t.dc, t.dr, t.punct,
+                spec.max_iter, PHI_ARG_MIN, constants.SMALLEST_PROB, constants.LLR_CLIP, stream)
+
+        def kernel():
+            if lib.kmldpc_bp_flood(*args) != 0:
+                raise RuntimeError("K2 raw launch failed")
+
+        def wrapper():
+            flooding_decode_em(t, llr, spec.max_iter)
+
+        def run_plain():
+            _decode_cols_padded(t, llr.T.contiguous(), spec.max_iter)
+
+        order = (("eager", eager, 2), ("plain", run_plain, 2), ("kernel", kernel, 20),
+                 ("wrapper", wrapper, 20))
+        runs = {name: [] for name, _, _ in order}
+        for name, fn, n in (*order, *reversed(order)):
+            runs[name].append(_time_ms(fn, n))
+        ms = {name: sum(v) / len(v) for name, v in runs.items()}
+        bound, bound_by = k2_bound_ms(t, b, iters, ops_rate)
+        words = ctypes.c_int(0)
+        if lib.kmldpc_bp_flood_words_per_sm(t.num_col, t.num_row, t.dc, t.dr,
+                                           ctypes.byref(words)) != 0:
+            raise RuntimeError("K2 occupancy query failed")
+        kblk = b / 1000
+        result[label] = dict(
+            snr_db=snr, batch=b, mean_iters=iters / b, gaps=gaps, bitwise_plain=bitwise,
+            ms=ms["kernel"], wrapper_ms=ms["wrapper"], plain_ms=ms["plain"],
+            eager_two_phase_ms=ms["eager"], bound_ms=bound, bound_by=bound_by,
+            words_per_sm=words.value, smem_bytes=bp_cuda.smem_bytes(t),
+        )
+        log(f"K2 {label} QPSK {snr:g} dB B={b}: mean iterations {iters / b:.4f}; against the "
+            f"plain core: iterations apart {gaps['iters']:.3g}, decisions apart "
+            f"{gaps['decided']:.3g}, soft p90 {gaps['soft']:.3g} (limits {K2_LIMITS}), "
+            f"bitwise {bitwise}; two launches bitwise equal")
+        log(f"K2 {label} B={b}: kernel alone {ms['kernel']:.4f} ms = "
+            f"{ms['kernel'] / kblk:.4f} ms/kblk (runs " + ", ".join(
+                f"{v:.4f}" for v in runs["kernel"]) + f"), bound {bound:.4f} ms by {bound_by}, "
+            f"share {bound / ms['kernel']:.4f}; wrapper {ms['wrapper']:.4f} ms (runs "
+            + ", ".join(f"{v:.4f}" for v in runs["wrapper"]) + f"); plain core single-phase "
+            f"{ms['plain']:.3f} ms, eager two-phase (tile {tile}) {ms['eager']:.3f} ms = "
+            f"{ms['eager'] / kblk:.4f} ms/kblk ({ms['eager'] / ms['kernel']:.1f}x the kernel); "
+            f"{words.value} codewords an SM ({bp_cuda.smem_bytes(t)} bytes of shared memory "
+            f"each)")
+    return result
+
+
+def phase_main_path(card: str, dev: torch.device) -> tuple[int, int]:
     import kmldpc_torch.__main__ as cli
     from kmldpc_torch.config import load_config
+    from kmldpc_torch.decoder.bp_cuda import launch_k2
     from kmldpc_torch.detect.kmeans_cuda import kmeans_estimate
     from kmldpc_torch.sim import Simulator
     from kmldpc_torch.utils import SimLogger
@@ -507,10 +652,10 @@ def phase_main_path(card: str, dev: torch.device) -> int:
         with open(cfg_path, "w") as f:
             f.write(text)
         out = io.StringIO()
-        kmeans_estimate.launches = 0
+        kmeans_estimate.launches = launch_k2.launches = 0
         with contextlib.redirect_stdout(out):
             rc = cli.main([cfg_path, "--device", "cuda", "--no-log-file"])
-        launches = kmeans_estimate.launches
+        launches, k2_launches = kmeans_estimate.launches, launch_k2.launches
         # the same point warm: three more passes through the harness
         sim = Simulator(load_config(cfg_path), SimLogger(log_dir=None, stdout=False), device=dev)
         warm = [sim.run_snr_point(15.0).blocks_per_s for _ in range(4)][1:]
@@ -518,8 +663,8 @@ def phase_main_path(card: str, dev: torch.device) -> int:
     sys.stdout.write(text)
     if rc != 0:
         raise AssertionError(f"main path exited {rc}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched K1")
+    if launches <= 0 or k2_launches <= 0:
+        raise AssertionError(f"the main path launched K1 {launches} and K2 {k2_launches} times")
     done = re.search(
         r"SNR = 15\.000 done: (\d+) blocks in ([\d.]+) s = ([\d.]+) blocks/s, "
         r"counters on (\S+)", text)
@@ -532,9 +677,9 @@ def phase_main_path(card: str, dev: torch.device) -> int:
         raise AssertionError(f"main path counted {blocks} blocks, expected 4096")
     log(f"main path (15 dB, blind QPSK PEG2304, B=1024): {blocks} blocks, "
         f"{bps:.1f} blocks/s, {bps * INFO_BITS:.0f} info bits/s on {card}; "
-        f"K1 launches {launches}; warm repeats "
+        f"K1 launches {launches}, K2 launches {k2_launches}; warm repeats "
         + ", ".join(f"{w:.1f}" for w in warm) + " blocks/s")
-    return launches
+    return launches, k2_launches
 
 
 def _sweep_point(toml: str, dev: torch.device, snr_db: float, b: int, seed: int):
@@ -1964,8 +2109,10 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.set_device(dev)
     phase_build()
     phase_native(smi)
-    k1 = phase_k1(dev, fp32_ops_per_s())
-    launches = phase_main_path(card, dev)
+    ops_rate = fp32_ops_per_s()
+    k1 = phase_k1(dev, ops_rate)
+    k2 = phase_k2(dev, ops_rate)
+    launches, k2_launches = phase_main_path(card, dev)
     counts = phase_parity(dev, smi)
     fast_launches, counts["fast stack"] = phase_harness(dev)
     phase_layered(dev)
@@ -2002,6 +2149,20 @@ def main(argv: list[str] | None = None) -> int:
         # row by row, in phase 8c's chain group (blind rows; none on known-h)
         "launches_per_chain_row": {k: n for k, n in k1_chain.items() if n},
         "by_table": k1["times"],
+    }, {
+        "name": "K2 per-codeword flooding sum-product decode of a regular code",
+        "route": "cuda",
+        "source": "kmldpc_torch/csrc/bp_flood.cu",
+        "replaces": None,  # no Pallas kernel: the JAX package decodes with XLA
+        "launches": k2_launches,
+        "ms": k2["PEG2304"]["ms"],
+        "plain_ms": k2["PEG2304"]["plain_ms"],
+        "bound_ms": k2["PEG2304"]["bound_ms"],
+        "bound_by": k2["PEG2304"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call decodes an LDPC code
+        "wrapper_ms": k2["PEG2304"]["wrapper_ms"],
+        "eager_two_phase_ms": k2["PEG2304"]["eager_two_phase_ms"],
+        "by_code": k2,
     }]}
     log(f"chip_smoke: {time.monotonic() - t_start:.3f} s")
     log(f"card: {smi}")

@@ -10,7 +10,8 @@ The build runs at first use, keyed by a hash of the sources and flags, into
 ``build/kmldpc_torch/`` beside the package (ignored by git).  Importing the
 package never needs ``nvcc``; a missing ``nvcc`` or a failed build raises
 when a CUDA path first asks for the library.  No fast-math flags: the
-kernels rely on IEEE division and on the float rounding they spell out.
+kernels rely on IEEE division and math functions, and on the float rounding
+they spell out.
 """
 
 from __future__ import annotations
@@ -94,4 +95,9 @@ def load_library() -> ctypes.CDLL:
     lib.kmldpc_kmeans.restype = ctypes.c_int
     lib.kmldpc_kmeans_rows_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.kmldpc_kmeans_rows_per_sm.restype = ctypes.c_int
+    f = ctypes.c_float
+    lib.kmldpc_bp_flood.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, f, f, p]
+    lib.kmldpc_bp_flood.restype = ctypes.c_int
+    lib.kmldpc_bp_flood_words_per_sm.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.kmldpc_bp_flood_words_per_sm.restype = ctypes.c_int
     return lib

@@ -83,6 +83,9 @@ class DecoderTables:
     perm_sm_c2r: torch.Tensor  # [dc_max*num_col] int64
     row_edge_col: torch.Tensor  # [num_row, dr_max] int64 — column of each row slot, num_col = pad
     row_col_sm: torch.Tensor  # [dr_max*num_row] int64 — row_edge_col.T flattened
+    # int32 copies of the two slot-major gathers, as kernel K2 reads them
+    perm_sm_c2r32: torch.Tensor
+    row_col_sm32: torch.Tensor
     # degree-class layout
     col_sort: torch.Tensor  # [num_col] — sorted position -> column
     col_unsort: torch.Tensor  # [num_col] — column -> sorted position
@@ -143,6 +146,7 @@ class DecoderTables:
         classes = {
             f: tuple((int(d), int(n)) for d, n in host[f]) for f in ("col_classes", "row_classes")
         }
+        row_col_sm = idx["row_edge_col"].T.reshape(-1).contiguous()
         return DecoderTables(
             num_col=int(host["num_col"]),
             num_row=int(host["num_row"]),
@@ -155,7 +159,9 @@ class DecoderTables:
             dr=int(host["dr"]),
             **classes,
             **idx,
-            row_col_sm=idx["row_edge_col"].T.reshape(-1).contiguous(),
+            row_col_sm=row_col_sm,
+            perm_sm_c2r32=idx["perm_sm_c2r"].to(torch.int32),
+            row_col_sm32=row_col_sm.to(torch.int32),
             row_mask=torch.tensor(np.asarray(host["row_mask"]).astype(np.float32),
                                   device=device),
         )

@@ -14,6 +14,12 @@ irregular codes (5G) the degree-class core; both take the check rule
 :func:`two_phase_generic` gives any batch decoder (this one, the layered
 min-sum decoder) the exact two-phase schedule.
 
+On CUDA tensors a regular code with the sum-product rule and float32
+messages runs kernel K2 instead (``decoder/bp_cuda.py``), whose plain
+version is the slot-major core: :func:`fused_decode_engages` decides.  K2
+stops each codeword when its syndrome passes, so it needs neither the exit
+checks below nor the two-phase schedule.
+
 Converged codewords freeze their outputs (hard decisions, iteration
 count, soft syndrome); the message array keeps updating, and as every
 message is clipped finite the frozen outputs are unaffected.  The loop
@@ -31,6 +37,7 @@ import torch
 
 from .. import constants
 from ..utils.trace import count, exit_check, span
+from . import bp_cuda
 from .bp import PHI_ARG_MIN, DecodeResult, DecoderTables, phi
 
 
@@ -231,6 +238,16 @@ def _batch_major(res: DecodeResult) -> DecodeResult:
     )
 
 
+def fused_decode_engages(
+    t: DecoderTables, chan_llr: torch.Tensor, cn_rule: str, msg_dtype: torch.dtype
+) -> bool:
+    """Whether kernel K2 decodes ``chan_llr``: a regular code whose working
+    set fits a block's shared memory (``bp_cuda.fits``), the sum-product
+    rule, float32 messages and LLRs on a CUDA device."""
+    return (cn_rule == "sumprod" and msg_dtype == torch.float32
+            and chan_llr.device.type == "cuda" and bp_cuda.fits(t))
+
+
 def flooding_decode_em(
     t: DecoderTables, chan_llr: torch.Tensor, iter_count: int, cn_rule: str = "sumprod",
     alpha: float = 0.75, msg_dtype: torch.dtype = torch.float32,
@@ -242,7 +259,10 @@ def flooding_decode_em(
     storage type of the c2v messages: float32 (the reference's) or
     bfloat16, which every read widens to float32 and every write rounds to
     nearest even, as XLA's convert does; node arithmetic stays float32.
+    Where :func:`fused_decode_engages` holds, kernel K2 decodes.
     """
+    if fused_decode_engages(t, chan_llr, cn_rule, msg_dtype):
+        return bp_cuda.launch_k2(t, chan_llr.to(torch.float32), iter_count)
     llr_col = _insert_punct(t, chan_llr.to(torch.float32).T.contiguous())
     return _batch_major(_decode_cols(t, llr_col, iter_count, cn_rule, alpha, msg_dtype))
 

@@ -62,6 +62,7 @@ def reduce_launch(res: ChunkResult, grid: Grid, gather: bool) -> ChunkResult:
         kmeans_diag=kmeans_diag,
         debug=debug,
         raw=res.raw,
+        fused_blk=res.fused_blk * grid.ndata,
     )
 
 

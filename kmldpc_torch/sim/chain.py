@@ -3,7 +3,9 @@
 
     bits -> encode -> map -> channel -> [K1 k-means + ambiguity metric]
          -> soft demap -> exact two-phase decode (flooding, or layered
-            min-sum) -> error counters
+            min-sum; on the card, a regular code's float32 sum-product
+            flooding is kernel K2, the whole batch in one call)
+         -> error counters
 
 It is split into a random front end (bits to channel outputs, drawn from one
 ``torch.Generator``) and a deterministic back end
@@ -29,7 +31,7 @@ from ..code.ldpc import LDPCCode
 from ..config import Config
 from ..device import resolve_device
 from ..decoder.bp import DecodeResult
-from ..decoder.bp_em import flooding_decode_em, two_phase_generic
+from ..decoder.bp_em import flooding_decode_em, fused_decode_engages, two_phase_generic
 from ..decoder.minsum import layered_minsum_decode
 from ..detect.kmeans import add_diagnostics, make_blind_estimator
 from ..detect.kmeans_cuda import make_blind_estimator_cuda
@@ -65,6 +67,9 @@ class ChunkResult(NamedTuple):
     debug: tuple = ()
     # the final decode's per-codeword DecodeResult; () in histogram mode
     raw: tuple = ()
+    # codewords of the final decode that kernel K2 decoded (host int): the
+    # harness counts their iterations, which K2 ran exactly, at consume
+    fused_blk: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -235,6 +240,7 @@ def build_backend_fn(
         tabs = params.ms if layered else params.dec
         sel_tabs = tabs if match else params.dec
         kmeans_diag = debug = raw = ()
+        fused_blk = 0
         if spec.known_h:
             if spec.histogram:
                 # one metric per block, over the single candidate true h;
@@ -267,9 +273,13 @@ def build_backend_fn(
                 if decode is not None:
                     raw = decode(chan_llr, spec.max_iter)
                 else:
+                    # K2 stops each codeword on its own: one tile of the whole batch
+                    if not layered and fused_decode_engages(tabs, chan_llr, cn_rule, msg_dtype):
+                        fused_blk = batch
                     raw = two_phase_generic(
                         lambda llr, it: batch_decode(tabs, llr, it, msg_dtype),
-                        chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters, tile=tile,
+                        chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters,
+                        tile=batch if fused_blk else tile,
                     )
             uu_hat, iters = raw.uu_hat, raw.iters.to(torch.float32).mean()
         with label("counters"):
@@ -286,6 +296,7 @@ def build_backend_fn(
                 kmeans_diag=kmeans_diag,
                 debug=debug,
                 raw=raw,
+                fused_blk=fused_blk,
             )
 
     return backend
@@ -329,6 +340,7 @@ def _concat(rs: list[ChunkResult]) -> ChunkResult:
         kmeans_diag=cat([r.kmeans_diag for r in rs]),
         debug=cat([r.debug for r in rs]),
         raw=cat([r.raw for r in rs]),
+        fused_blk=sum(r.fused_blk for r in rs),
     )
 
 

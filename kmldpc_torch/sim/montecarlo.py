@@ -322,7 +322,7 @@ class Simulator:
                 if histogram_file is not None:
                     self._write_histogram(histogram_file, _np(res.metrics))
                 iters = float(res.iters)
-                self._count_launch(iters, int(res.tot_blk))
+                self._count_launch(iters, int(res.tot_blk), int(res.fused_blk))
                 self.log.info(f"chunk {c.chunks}: mean BP iters = {iters:.2f}", to_stdout=False)
                 if c.tot_blk - last_print >= 100 or c.tot_blk >= max_blk or c.err_blk >= max_err:
                     self._print_result(snr, c)
@@ -437,12 +437,16 @@ class Simulator:
                 f"hatIndex = {int(np.argmin(metrics[j]))}", to_stdout=False
             )
 
-    def _count_launch(self, mean_iters: float, blocks: int) -> None:
+    def _count_launch(self, mean_iters: float, blocks: int, fused: int) -> None:
         """Counts a consumed launch under ``harness.launches``, and its
         needed codeword-iterations (this rank's share: the mean is over the
-        data ranks' blocks) under ``decode.cw_iters_needed``."""
+        data ranks' blocks) under ``decode.cw_iters_needed``.  Kernel K2 runs
+        each of its ``fused`` codewords exactly the iterations it needs, so
+        their share of the same sum goes under ``decode.cw_iters_run``."""
         count("launches", stage="harness")
         count("cw_iters_needed", round(mean_iters * blocks / self.grid.ndata), stage="decode")
+        if fused:
+            count("cw_iters_run", round(mean_iters * fused / self.grid.ndata), stage="decode")
 
     def _log_counters(self, what: str, before: dict) -> None:
         """The decode's and the metric stage's counters since ``before``
@@ -453,7 +457,8 @@ class Simulator:
         run, needed = d.get("decode.cw_iters_run", 0), d.get("decode.cw_iters_needed", 0)
         self.log.info(
             f"{what} counters: decode cw_iters_run = {run} cw_iters_needed = {needed} "
-            f"needed/run = {needed / run if run else 0.0:.4f} syncs = {d.get('decode.syncs', 0)}; "
+            f"needed/run = {needed / run if run else 0.0:.4f} syncs = {d.get('decode.syncs', 0)} "
+            f"fused_rows = {d.get('decode.fused_rows', 0)}; "
             f"metric cw_iters_run = {d.get('metric.cw_iters_run', 0)} "
             f"syncs = {d.get('metric.syncs', 0)}",
             to_stdout=False,
@@ -585,9 +590,9 @@ class Simulator:
             nonlocal t_mark
             with span("harness.consume"):
                 slots, res = dispatch
-                err_bit, err_blk, tot_bit, tot_blk, err_sq, iters = (
+                err_bit, err_blk, tot_bit, tot_blk, err_sq, iters, fused_blk = (
                     _np(a) for a in (res.err_bit, res.err_blk, res.tot_bit, res.tot_blk,
-                                     res.err_bit_sq, res.iters))
+                                     res.err_bit_sq, res.iters, res.fused_blk))
                 now = time.monotonic()
                 n_valid = sum(1 for _, v in slots if v)
                 dt_slot = (now - t_mark) / n_valid if n_valid else 0.0
@@ -618,7 +623,7 @@ class Simulator:
                         # sequential path
                         self._log_debug_blocks(res, c.tot_blk - int(tot_blk[j]), slot=j)
                         debug_pending[snr] = False
-                    self._count_launch(float(iters[j]), int(tot_blk[j]))
+                    self._count_launch(float(iters[j]), int(tot_blk[j]), int(fused_blk[j]))
                     self.log.info(
                         f"chunk {c.chunks} [snr {snr:.3f}]: "
                         f"mean BP iters = {float(iters[j]):.2f}",

@@ -15,6 +15,8 @@ as device work.  The spans:
   schedule's phase 1, its unconverged count, each phase-2 tile
   (``decoder/bp_em.py``);
 * ``exit_check``: a decoder loop's early-exit test, a host sync;
+* ``k2``: a launch of kernel K2 (``decoder/bp_cuda.py``): launched through
+  ``ctypes``, its kernel has no operator of its own to be tied to;
 * ``harness.build``, ``harness.consume``, ``harness.checkpoint``: the
   ``Simulator``'s set-up, its reads of a launch's counters, its checkpoint
   writes (``sim/montecarlo.py``).
@@ -24,9 +26,11 @@ under the chain label the host is in when it counts (``decode.syncs``,
 ``metric.cw_iters_run``, ...):
 
 * ``cw_iters_run``: codeword-iterations executed, the rows of a decoder core
-  call times the iterations its loop ran;
+  call times the iterations its loop ran (for kernel K2's rows, counted by
+  the ``Simulator`` at consume: the iterations they needed);
 * ``syncs``: host syncs of the decode, its exit checks and phase 2's
-  unconverged count;
+  unconverged count (K2 counts its none);
+* ``fused_rows``: codewords kernel K2 decoded;
 * ``decode.cw_iters_needed`` and ``harness.launches``: counted by the
   ``Simulator`` as it consumes a launch, the iterations each codeword
   needed, summed (from the mean it reads anyway), and the launches.

@@ -438,3 +438,130 @@ def test_microbench_kmeans_group_cuda_rows_on_card(cuda):
         ref, got = impls["plain"](y[0], y[1]), impls["cuda"](y[0], y[1])
         for a, b in zip(got, ref):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+# --- kernel K2: the per-codeword flooding sum-product decode -------------------
+
+K2_LINKS = [(f, snr) for f in ("PEG2304regular0.5.txt", "PEG8064regular0.5.txt")
+            for snr in (5.0, 10.0, 20.0)]
+K2_BATCH = 2048
+
+
+def _k2_link(assets, cuda, code_file, snr_db, b, seed):
+    """A known-h QPSK link's channel LLRs on the card: (tables, llr [B, n])."""
+    from kmldpc_torch.ops.modem import make_soft_demapper
+
+    code = load_code(str(assets / code_file))
+    const = parse_constellation(str(assets / "2bits_QPSK.txt"))
+    spec = ChainSpec(code=code, constellation=const, known_h=True, fading=True,
+                     metric_type=False, metric_iter=5, max_iter=50, encoder_active=True)
+    var = torch.tensor(10.0 ** (-0.1 * snr_db), dtype=torch.float32, device=cuda)
+    params = make_chain_params(code, cuda)
+    _, yr, yi, hr, hi = build_frontend_fn(spec, b, cuda)(params, make_generator(seed, cuda), var)
+    _, llr = make_soft_demapper(ModemTables.from_constellation(const, cuda))(yr, yi, hr, hi, var)
+    return params.dec, llr
+
+
+@pytest.mark.parametrize("code_file,snr_db", K2_LINKS)
+def test_k2_matches_plain_core_on_links(assets, cuda, code_file, snr_db):
+    """K2 against its plain version (the slot-major core) on the card, by
+    the limits of linkbench/traffic/peg2304-qpsk.blind.toml's [check]: rows
+    whose iterations or convergence differ at most 0.002, rows whose
+    decisions differ at most 0.005, and the 90th percentile of each row's
+    largest soft-syndrome difference (1 where the rows decode apart) at
+    most 0.001."""
+    from kmldpc_torch.decoder import bp_cuda, flooding_decode_em
+    from kmldpc_torch.decoder.bp_em import _decode_cols_padded
+
+    t, llr = _k2_link(assets, cuda, code_file, snr_db, K2_BATCH, 19)
+    before = bp_cuda.launch_k2.launches
+    k2 = flooding_decode_em(t, llr, 50)
+    assert bp_cuda.launch_k2.launches == before + 1
+    plain = _decode_cols_padded(t, llr.T.contiguous(), 50)
+    iters_apart = (k2.iters != plain.iters) | (k2.converged != plain.converged)
+    decided_apart = (k2.cc_hat != plain.cc_hat.T).any(dim=1)
+    ss_err = (k2.soft_syndrome - plain.soft_syndrome.T).abs().amax(dim=1)
+    ss_err = torch.where(decided_apart | iters_apart, 1.0, ss_err)
+    assert float(iters_apart.float().mean()) <= 0.002
+    assert float(decided_apart.float().mean()) <= 0.005
+    assert float(torch.quantile(ss_err, 0.9)) <= 0.001
+    assert torch.equal(k2.uu_hat, k2.cc_hat[:, t.info_start: t.info_start + t.code_dim])
+    assert int(k2.iters.min()) >= 1 and int(k2.iters.max()) <= 50
+
+
+@pytest.mark.parametrize("code_file", ["PEG2304regular0.5.txt", "PEG8064regular0.5.txt"])
+def test_k2_engineered_rows(assets, cuda, code_file):
+    """All-strong LLRs (the all-zero word) converge on the first iteration
+    with a soft syndrome of ones; rows of strong random signs never
+    converge and run the whole budget; no iteration leaves the state as it
+    started."""
+    from kmldpc_torch.decoder import DecoderTables, flooding_decode_em
+
+    t = DecoderTables.from_code(load_code(str(assets / code_file)), cuda)
+    n = t.num_col - t.punct
+    strong = flooding_decode_em(t, torch.full((64, n), 20.0, device=cuda), 50)
+    assert bool((strong.iters == 1).all()) and bool(strong.converged.all())
+    assert bool((strong.soft_syndrome == 1.0).all()) and not bool(strong.cc_hat.any())
+    g = torch.Generator(device=cuda).manual_seed(5)
+    signs = 1 - 2 * torch.randint(0, 2, (64, n), generator=g, device=cuda)
+    noise = flooding_decode_em(t, 20.0 * signs.float(), 50)
+    assert bool((noise.iters == 50).all()) and not bool(noise.converged.any())
+    none = flooding_decode_em(t, 20.0 * signs.float(), 0)
+    assert not bool(none.cc_hat.any()) and not bool(none.converged.any())
+    assert bool((none.iters == 0).all()) and bool((none.soft_syndrome == 1.0).all())
+
+
+def test_k2_makes_no_device_to_host_copy(assets, cuda):
+    """A K2 decode never synchronises, so it copies nothing to the host; it
+    counts its rows under ``fused_rows`` and its syncs (none) under
+    ``syncs``, and the chain hands it the whole batch in one launch."""
+    from kmldpc_torch.decoder import bp_cuda, flooding_decode_em
+    from kmldpc_torch.utils import trace
+
+    t, llr = _k2_link(assets, cuda, "PEG2304regular0.5.txt", 10.0, 1024, 3)
+    flooding_decode_em(t, llr, 50)  # builds and loads the library
+    torch.cuda.synchronize()
+    trace.reset()
+    before = bp_cuda.launch_k2.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with trace.label("decode"):
+            flooding_decode_em(t, llr, 50)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bp_cuda.launch_k2.launches == before + 1
+    assert trace.snapshot() == {"decode.fused_rows": 1024, "decode.syncs": 0}
+    code = load_code(str(assets / "PEG2304regular0.5.txt"))
+    const = parse_constellation(str(assets / "2bits_QPSK.txt"))
+    spec = ChainSpec(code=code, constellation=const, known_h=False, fading=True,
+                     metric_type=False, metric_iter=5, max_iter=50, encoder_active=True)
+    var = torch.tensor(10**-1.0, dtype=torch.float32, device=cuda)
+    params = make_chain_params(code, cuda)
+    front = build_frontend_fn(spec, 256, cuda)(params, make_generator(9, cuda), var)
+    before = bp_cuda.launch_k2.launches
+    res = build_backend_fn(spec, 256, cuda)(params, *front, var)
+    assert bp_cuda.launch_k2.launches == before + 1 and res.fused_blk == 256
+    trace.reset()
+
+
+def test_k2_kernel_counts_under_the_chain_label(assets, cuda):
+    """In a profiler's trace, as the benchmark reduces it, K2's kernel is
+    device time under the chain label its launch sits in."""
+    from torch.autograd.profiler import record_function
+
+    from kmldpc_torch.decoder import flooding_decode_em
+    from kmldpc_torch.utils import trace
+    from linkbench.trace import SWEEP_SPAN, _profile, reduce
+
+    t, llr = _k2_link(assets, cuda, "PEG2304regular0.5.txt", 10.0, 1024, 4)
+    flooding_decode_em(t, llr, 50)
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        with record_function(SWEEP_SPAN):
+            with trace.label("decode"):
+                flooding_decode_em(t, llr, 50)
+            torch.cuda.synchronize()
+    s = reduce(prof.profiler.kineto_results.events())
+    k2 = s.kernel_s("bp_flood_kernel")
+    assert k2 > 0 and s.by_label.get("decode", 0.0) >= k2
+    trace.reset()

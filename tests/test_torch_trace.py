@@ -209,7 +209,7 @@ def test_simulator_logs_counters_to_the_file_only(assets, tmp_path, capsys, monk
     log = open(glob.glob(str(tmp_path / "logs" / "*"))[0]).read()
     assert "cw_iters" not in out
     found = re.findall(r"\] (.*) counters: decode cw_iters_run = (\d+) cw_iters_needed = (\d+) "
-                       r"needed/run = ([0-9.]+) syncs = (\d+); "
+                       r"needed/run = ([0-9.]+) syncs = (\d+) fused_rows = (\d+); "
                        r"metric cw_iters_run = (\d+) syncs = (\d+)", log)
     whats = [f[0] for f in found]
     assert whats == (["SNR = 10.000", "SNR = 15.000"] if not snr_fold
@@ -223,7 +223,8 @@ def test_simulator_logs_counters_to_the_file_only(assets, tmp_path, capsys, monk
     assert needed == pytest.approx(4 * sum(means), abs=0.02 * 4 * len(means))
     assert 0 < needed <= run and all(int(f[4]) > 0 for f in found)
     # 4 launches of 4 blocks, 4 candidates each: at least 4 metric iterations a row
-    metric_run = sum(int(f[5]) for f in found)
+    assert all(int(f[5]) == 0 for f in found)  # K2 decodes no row on the CPU
+    metric_run = sum(int(f[6]) for f in found)
     assert 4 * 16 * 4 <= metric_run <= 4 * 16 * 5
     (tmp_path / "ckpt.json").unlink()
     monkeypatch.setattr(Simulator, "_log_counters", lambda *a: None)
