@@ -5,8 +5,11 @@ k-means kernel ``kmldpc_tpu/detect/kmeans_pallas.py::_kmeans_kernel``.
 returns ``estimate(yr, yi)`` for yr/yi [B, Nsym] float32.  For tensors on
 the CPU it runs the plain version (``detect/kmeans.py``).  For CUDA tensors
 it launches K1 on the current stream or raises; it never falls back, and a
-launch makes no copy from the device and no synchronisation.  Each launch
-adds one to ``kmeans_estimate.launches``.
+launch makes no copy from the device and no synchronisation.  The launch
+runs inside the span ``k1``: a kernel launched through ``ctypes`` has no
+PyTorch operator around it, and the span is what ties it, on a profiler's
+timeline, to the chain label the host is in.  Each launch adds one to
+``kmeans_estimate.launches``.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from .._build import load_library
 from ..ops.modem import ModemTables
+from ..utils.trace import span
 from .kmeans import blind_estimate, expand_candidates, init_index
 
 KERNEL_POINTS = (4, 16, 64)  # constellation sizes K1 is instantiated for
@@ -57,15 +61,16 @@ def launch_k1(
     with torch.cuda.device(yr.device):
         h4_r = torch.empty((b, 4), dtype=torch.float32, device=yr.device)
         h4_i = torch.empty((b, 4), dtype=torch.float32, device=yr.device)
-        err = lib.kmldpc_kmeans(
-            yr.data_ptr(), yi.data_ptr(), h4_r.data_ptr(), h4_i.data_ptr(),
-            b, nsym,
-            points_re.ctypes.data_as(ctypes.c_void_p),
-            points_im.ctypes.data_as(ctypes.c_void_p),
-            m, iters, k_init, int(anchor_first), int(early_exit),
-            None if rounds is None else rounds.data_ptr(),
-            torch.cuda.current_stream(yr.device).cuda_stream,
-        )
+        with span("k1"):
+            err = lib.kmldpc_kmeans(
+                yr.data_ptr(), yi.data_ptr(), h4_r.data_ptr(), h4_i.data_ptr(),
+                b, nsym,
+                points_re.ctypes.data_as(ctypes.c_void_p),
+                points_im.ctypes.data_as(ctypes.c_void_p),
+                m, iters, k_init, int(anchor_first), int(early_exit),
+                None if rounds is None else rounds.data_ptr(),
+                torch.cuda.current_stream(yr.device).cuda_stream,
+            )
     if err != 0:
         raise RuntimeError(
             f"K1 (kmldpc_kmeans) launch failed: cudaError_t {err} "

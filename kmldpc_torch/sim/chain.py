@@ -42,7 +42,7 @@ from ..ops.encode import make_encoder
 from ..ops.modem import ModemTables, make_mapper, make_soft_demapper
 from ..ops.source import chunk_seed, make_generator, random_bits
 from ..params import ChainParams, make_chain_params
-from ..utils.trace import label
+from ..utils.trace import count, label
 
 
 class ChunkResult(NamedTuple):
@@ -258,6 +258,7 @@ def build_backend_fn(
         else:
             with label("kmeans"):
                 h4_r, h4_i, *diag = estimate(yr, yi)
+                count("rows", yr.shape[0])
             if diag:
                 kmeans_diag = (yr, yi, *diag, h4_r, h4_i, hr_true, hi_true)
             with label("metric"):

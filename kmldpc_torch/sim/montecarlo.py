@@ -449,9 +449,10 @@ class Simulator:
             count("cw_iters_run", round(mean_iters * fused / self.grid.ndata), stage="decode")
 
     def _log_counters(self, what: str, before: dict) -> None:
-        """The decode's and the metric stage's counters since ``before``
-        (a ``snapshot()``), to the log file only: codeword-iterations run
-        and needed, their ratio, and host syncs."""
+        """The decode's, the blind estimate's and the metric stage's
+        counters since ``before`` (a ``snapshot()``), to the log file only:
+        codeword-iterations run and needed, their ratio, host syncs, the
+        rows kernel K2 decoded and the rows whose gain was estimated."""
         now = snapshot()
         d = {k: v - before.get(k, 0) for k, v in now.items()}
         run, needed = d.get("decode.cw_iters_run", 0), d.get("decode.cw_iters_needed", 0)
@@ -459,6 +460,7 @@ class Simulator:
             f"{what} counters: decode cw_iters_run = {run} cw_iters_needed = {needed} "
             f"needed/run = {needed / run if run else 0.0:.4f} syncs = {d.get('decode.syncs', 0)} "
             f"fused_rows = {d.get('decode.fused_rows', 0)}; "
+            f"kmeans rows = {d.get('kmeans.rows', 0)}; "
             f"metric cw_iters_run = {d.get('metric.cw_iters_run', 0)} "
             f"syncs = {d.get('metric.syncs', 0)}",
             to_stdout=False,

@@ -15,8 +15,9 @@ as device work.  The spans:
   schedule's phase 1, its unconverged count, each phase-2 tile
   (``decoder/bp_em.py``);
 * ``exit_check``: a decoder loop's early-exit test, a host sync;
-* ``k2``: a launch of kernel K2 (``decoder/bp_cuda.py``): launched through
-  ``ctypes``, its kernel has no operator of its own to be tied to;
+* ``k1``, ``k2``: a launch of kernel K1 (``detect/kmeans_cuda.py``) or K2
+  (``decoder/bp_cuda.py``): launched through ``ctypes``, their kernels have
+  no operator of their own to be tied to;
 * ``harness.build``, ``harness.consume``, ``harness.checkpoint``: the
   ``Simulator``'s set-up, its reads of a launch's counters, its checkpoint
   writes (``sim/montecarlo.py``).
@@ -31,6 +32,8 @@ under the chain label the host is in when it counts (``decode.syncs``,
 * ``syncs``: host syncs of the decode, its exit checks and phase 2's
   unconverged count (K2 counts its none);
 * ``fused_rows``: codewords kernel K2 decoded;
+* ``kmeans.rows``: rows whose gain the blind estimate ran, counted by the
+  chain whichever implementation ran them (K1, the plain loop);
 * ``decode.cw_iters_needed`` and ``harness.launches``: counted by the
   ``Simulator`` as it consumes a launch, the iterations each codeword
   needed, summed (from the mean it reads anyway), and the launches.

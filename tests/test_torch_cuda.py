@@ -565,3 +565,37 @@ def test_k2_kernel_counts_under_the_chain_label(assets, cuda):
     k2 = s.kernel_s("bp_flood_kernel")
     assert k2 > 0 and s.by_label.get("decode", 0.0) >= k2
     trace.reset()
+
+
+def test_k1_kernel_counts_under_the_chain_label(assets, cuda):
+    """In a traced blind launch of the PEG8064 64QAM link, as the benchmark
+    reduces it, K1's kernel is device time under the chain's ``kmeans``
+    label, tied to it by the span ``k1`` around its launch; the chain counts
+    the launch's rows under ``kmeans.rows``."""
+    from torch.autograd.profiler import record_function
+
+    from kmldpc_torch.utils import trace
+    from linkbench.trace import SWEEP_SPAN, _profile, reduce
+
+    code = load_code(str(assets / "PEG8064regular0.5.txt"))
+    const = parse_constellation(str(assets / "6bits_64QAM_Gray.txt"))
+    spec = ChainSpec(code=code, constellation=const, known_h=False, fading=True,
+                     metric_type=False, metric_iter=5, max_iter=50, encoder_active=True)
+    var = torch.tensor(10**-2.0, dtype=torch.float32, device=cuda)
+    params = make_chain_params(code, cuda)
+    front = build_frontend_fn(spec, 128, cuda)(params, make_generator(7, cuda), var)
+    backend = build_backend_fn(spec, 128, cuda)
+    backend(params, *front, var)  # builds and loads the library
+    torch.cuda.synchronize()
+    trace.reset()
+    with _profile() as prof:
+        with record_function(SWEEP_SPAN):
+            backend(params, *front, var)
+            torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    assert any(e.name() == "k1" for e in events)
+    s = reduce(events)
+    k1 = s.kernel_s("kmeans_kernel")
+    assert k1 > 0 and s.by_label.get("kmeans", 0.0) >= k1
+    assert trace.snapshot()["kmeans.rows"] == 128
+    trace.reset()

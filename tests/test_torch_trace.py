@@ -210,7 +210,7 @@ def test_simulator_logs_counters_to_the_file_only(assets, tmp_path, capsys, monk
     assert "cw_iters" not in out
     found = re.findall(r"\] (.*) counters: decode cw_iters_run = (\d+) cw_iters_needed = (\d+) "
                        r"needed/run = ([0-9.]+) syncs = (\d+) fused_rows = (\d+); "
-                       r"metric cw_iters_run = (\d+) syncs = (\d+)", log)
+                       r"kmeans rows = (\d+); metric cw_iters_run = (\d+) syncs = (\d+)", log)
     whats = [f[0] for f in found]
     assert whats == (["SNR = 10.000", "SNR = 15.000"] if not snr_fold
                      else ["SNR-fold sweep of 2 points"])
@@ -224,7 +224,9 @@ def test_simulator_logs_counters_to_the_file_only(assets, tmp_path, capsys, monk
     assert 0 < needed <= run and all(int(f[4]) > 0 for f in found)
     # 4 launches of 4 blocks, 4 candidates each: at least 4 metric iterations a row
     assert all(int(f[5]) == 0 for f in found)  # K2 decodes no row on the CPU
-    metric_run = sum(int(f[6]) for f in found)
+    # the blind estimate ran every row of the 4 launches, once
+    assert sum(int(f[6]) for f in found) == counts["kmeans.rows"] == 16
+    metric_run = sum(int(f[7]) for f in found)
     assert 4 * 16 * 4 <= metric_run <= 4 * 16 * 5
     (tmp_path / "ckpt.json").unlink()
     monkeypatch.setattr(Simulator, "_log_counters", lambda *a: None)
