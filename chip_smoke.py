@@ -35,6 +35,14 @@ Phases (any failure raises and exits non-zero):
    alone, the wrapper, the plain core single-phase and the eager two-phase
    decode the chain ran before K2, beside the bound and the codewords an
    SM holds;
+3c. K3 against its plain version (the degree-class core) on known-h 16QAM
+   LLRs of the 5G BG2 K=960 code at 18 dB, B = 16384, by the known 5G
+   cell's [check] limits (iterations apart at most 0.002, decisions apart
+   at most 1e-4, soft p90 at most 0.001), two launches bitwise equal; CUDA
+   events time the kernel alone, the wrapper, the plain core single-phase
+   and the eager two-phase decode the chain ran before K3, beside the bound,
+   the registers a thread and the codewords an SM; K3's launches are counted
+   over phase 5's sweeps;
 4. main path: ``kmldpc_torch.__main__.main`` on
    configs/main_path_blind_qpsk.toml restricted to 15 dB, with K1's and
    K2's launch counts reset just before and read just after, then the same
@@ -633,6 +641,114 @@ def phase_k2(dev: torch.device, ops_rate: float) -> dict:
             f"{words.value} codewords an SM ({bp_cuda.smem_bytes(t)} bytes of shared memory "
             f"each)")
     return result
+
+
+# K3's case: the known-h 16QAM 5G link of nr-bg2-16qam.known at a mid-grid
+# point, at that cell's batch cut to a quarter (the plain core's [E, B]
+# arrays and its 50 iterations are timed too)
+K3_CASE = ("5GLDPCBG2a3_R12_K960.txt", "4bit_16QAM_Gray.txt", 18.0, 16384)
+K3_LIMITS = dict(iters=0.002, decided=1e-4, soft=0.001)  # the known cell's [check] limits
+
+
+def phase_k3(dev: torch.device, ops_rate: float) -> dict:
+    """Kernel K3 against its plain version (the degree-class core) and the
+    eager two-phase decode the chain ran before it, then timed."""
+    import ctypes
+
+    from kmldpc_torch import _build, constants
+    from kmldpc_torch.code import load_code
+    from kmldpc_torch.decoder import bp_cuda, flooding_decode_em, two_phase_generic
+    from kmldpc_torch.decoder.bp import PHI_ARG_MIN
+    from kmldpc_torch.decoder.bp_em import _batch_major, _decode_cols_classes, _insert_punct
+    from kmldpc_torch.io import parse_constellation
+    from kmldpc_torch.ops.modem import ModemTables, make_soft_demapper
+    from kmldpc_torch.ops.source import make_generator
+    from kmldpc_torch.params import make_chain_params
+    from kmldpc_torch.sim.chain import ChainSpec, build_frontend_fn
+
+    code_file, table, snr, b = K3_CASE
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    const = parse_constellation(os.path.join(HERE, "assets", table))
+    code = load_code(os.path.join(HERE, "assets", code_file))
+    spec = ChainSpec(code=code, constellation=const, known_h=True, fading=True,
+                     metric_type=True, metric_iter=5, max_iter=50, encoder_active=True)
+    var = torch.tensor(10.0 ** (-0.1 * snr), dtype=torch.float32, device=dev)
+    params = make_chain_params(code, dev)
+    t = params.dec
+    _, yr, yi, hr, hi = build_frontend_fn(spec, b, dev)(params, make_generator(11, dev), var)
+    _, llr = make_soft_demapper(ModemTables.from_constellation(const, dev))(yr, yi, hr, hi, var)
+    llr = llr.contiguous()
+
+    def plain_core(x, n):
+        return _batch_major(_decode_cols_classes(t, _insert_punct(t, x.T.contiguous()), n))
+
+    k3 = flooding_decode_em(t, llr, spec.max_iter)
+    again = flooding_decode_em(t, llr, spec.max_iter)
+    plain = plain_core(llr, spec.max_iter)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(k3, again)):
+        raise AssertionError("K3: two launches differ")
+    gaps = _k2_gaps(k3, plain)
+    if any(gaps[k] > lim for k, lim in K3_LIMITS.items()):
+        raise AssertionError(f"K3 {snr:g} dB against its plain version: {gaps}, "
+                             f"limits {K3_LIMITS}")
+    bitwise = all(torch.equal(a, c) for a, c in zip(k3, plain))
+    iters = float(k3.iters.sum())
+    tile = max(8, b // 8)
+    outs = (torch.empty((b, t.num_col), dtype=torch.int8, device=dev),
+            torch.empty((b,), dtype=torch.bool, device=dev),
+            torch.empty((b,), dtype=torch.int32, device=dev),
+            torch.empty((b, t.num_row), dtype=torch.float32, device=dev))
+    classes = bp_cuda.class_args(t)
+    args = (llr.data_ptr(), t.perm_cf_c2r32.data_ptr(), t.row_col_cf32.data_ptr(),
+            t.col_sort32.data_ptr(), t.col_unsort32.data_ptr(), t.row_unsort32.data_ptr(),
+            *(o.data_ptr() for o in outs), b, t.num_col, t.num_row, t.punct, *classes,
+            spec.max_iter, PHI_ARG_MIN, constants.SMALLEST_PROB, constants.LLR_CLIP, stream)
+
+    def kernel():
+        if lib.kmldpc_bp_flood_classes(*args) != 0:
+            raise RuntimeError("K3 raw launch failed")
+
+    def wrapper():
+        flooding_decode_em(t, llr, spec.max_iter)
+
+    def run_plain():
+        plain_core(llr, spec.max_iter)
+
+    def eager():
+        return two_phase_generic(plain_core, llr, spec.max_iter, spec.phase1_iters, tile)
+
+    order = (("eager", eager, 1), ("plain", run_plain, 1), ("kernel", kernel, 20),
+             ("wrapper", wrapper, 20))
+    runs = {name: [] for name, _, _ in order}
+    for name, fn, n in (*order, *reversed(order)):
+        runs[name].append(_time_ms(fn, n))
+    ms = {name: sum(v) / len(v) for name, v in runs.items()}
+    bound, bound_by = k2_bound_ms(t, b, iters, ops_rate)
+    words, regs = ctypes.c_int(0), ctypes.c_int(0)
+    if lib.kmldpc_bp_flood_classes_words_per_sm(t.num_col, t.num_row, *classes,
+                                               ctypes.byref(words), ctypes.byref(regs)) != 0:
+        raise RuntimeError("K3 occupancy query failed")
+    kblk = b / 1000
+    log(f"K3 5G BG2 16QAM {snr:g} dB B={b}: mean iterations {iters / b:.4f}; against the "
+        f"plain core: iterations apart {gaps['iters']:.3g}, decisions apart "
+        f"{gaps['decided']:.3g}, soft p90 {gaps['soft']:.3g} (limits {K3_LIMITS}), "
+        f"bitwise {bitwise}; two launches bitwise equal")
+    log(f"K3 B={b}: kernel alone {ms['kernel']:.4f} ms = {ms['kernel'] / kblk:.4f} ms/kblk "
+        f"(runs " + ", ".join(f"{v:.4f}" for v in runs["kernel"]) + f"), bound {bound:.4f} ms "
+        f"by {bound_by}, share {bound / ms['kernel']:.4f}; wrapper {ms['wrapper']:.4f} ms (runs "
+        + ", ".join(f"{v:.4f}" for v in runs["wrapper"]) + f"); plain core single-phase "
+        f"{ms['plain']:.3f} ms, eager two-phase (tile {tile}) {ms['eager']:.3f} ms = "
+        f"{ms['eager'] / kblk:.4f} ms/kblk ({ms['eager'] / ms['kernel']:.1f}x the kernel); "
+        f"{regs.value} registers a thread, {words.value} codewords an SM "
+        f"({bp_cuda.smem_bytes(t)} bytes of shared memory each, and the class descriptors)")
+    return dict(
+        snr_db=snr, batch=b, mean_iters=iters / b, gaps=gaps, bitwise_plain=bitwise,
+        ms=ms["kernel"], wrapper_ms=ms["wrapper"], plain_ms=ms["plain"],
+        eager_two_phase_ms=ms["eager"], bound_ms=bound, bound_by=bound_by,
+        words_per_sm=words.value, registers=regs.value, smem_bytes=bp_cuda.smem_bytes(t),
+    )
 
 
 def phase_main_path(card: str, dev: torch.device) -> tuple[int, int]:
@@ -2112,8 +2228,12 @@ def main(argv: list[str] | None = None) -> int:
     ops_rate = fp32_ops_per_s()
     k1 = phase_k1(dev, ops_rate)
     k2 = phase_k2(dev, ops_rate)
+    k3 = phase_k3(dev, ops_rate)
     launches, k2_launches = phase_main_path(card, dev)
+    from kmldpc_torch.decoder.bp_cuda import launch_k3
+    launch_k3.launches = 0
     counts = phase_parity(dev, smi)
+    k3_launches = launch_k3.launches
     fast_launches, counts["fast stack"] = phase_harness(dev)
     phase_layered(dev)
     phase_bf16(dev)
@@ -2163,6 +2283,20 @@ def main(argv: list[str] | None = None) -> int:
         "wrapper_ms": k2["PEG2304"]["wrapper_ms"],
         "eager_two_phase_ms": k2["PEG2304"]["eager_two_phase_ms"],
         "by_code": k2,
+    }, {
+        "name": "K3 per-codeword flooding sum-product decode of an irregular code",
+        "route": "cuda",
+        "source": "kmldpc_torch/csrc/bp_flood.cu",
+        "replaces": None,  # no Pallas kernel: the JAX package decodes with XLA
+        "launches": k3_launches,  # over the parity phase's sweeps
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": None,  # no single PyTorch call decodes an LDPC code
+        "wrapper_ms": k3["wrapper_ms"],
+        "eager_two_phase_ms": k3["eager_two_phase_ms"],
+        "by_code": {"5G BG2": k3},
     }]}
     log(f"chip_smoke: {time.monotonic() - t_start:.3f} s")
     log(f"card: {smi}")

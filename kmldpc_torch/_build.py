@@ -100,4 +100,10 @@ def load_library() -> ctypes.CDLL:
     lib.kmldpc_bp_flood.restype = ctypes.c_int
     lib.kmldpc_bp_flood_words_per_sm.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.kmldpc_bp_flood_words_per_sm.restype = ctypes.c_int
+    ip = ctypes.POINTER(i)  # a host array of class degrees or node counts
+    lib.kmldpc_bp_flood_classes.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                            ip, ip, i, ip, ip, i, i, f, f, f, p]
+    lib.kmldpc_bp_flood_classes.restype = ctypes.c_int
+    lib.kmldpc_bp_flood_classes_words_per_sm.argtypes = [i, i, ip, ip, i, ip, ip, i, ip, ip]
+    lib.kmldpc_bp_flood_classes_words_per_sm.restype = ctypes.c_int
     return lib

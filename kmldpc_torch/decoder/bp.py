@@ -62,6 +62,9 @@ _INDEX_FIELDS = ("perm_sm_c2r", "row_edge_col", "col_sort", "col_unsort", "row_u
                  "perm_cf_c2r", "row_col_cf", "edge_col", "col_edge_idx", "row_edge_idx",
                  "edge_rowslot")
 
+# the degree-class gathers kernel K3 reads, each with an int32 copy "<name>32"
+_CLASS_GATHERS = ("perm_cf_c2r", "row_col_cf", "col_sort", "col_unsort", "row_unsort")
+
 
 @dataclasses.dataclass(frozen=True)
 class DecoderTables:
@@ -92,6 +95,12 @@ class DecoderTables:
     row_unsort: torch.Tensor  # [num_row] — row -> sorted position
     perm_cf_c2r: torch.Tensor  # [E] — class column-flat position -> row-flat position
     row_col_cf: torch.Tensor  # [E] — class row-flat position -> sorted column
+    # int32 copies of the degree-class gathers, as kernel K3 reads them
+    perm_cf_c2r32: torch.Tensor
+    row_col_cf32: torch.Tensor
+    col_sort32: torch.Tensor
+    col_unsort32: torch.Tensor
+    row_unsort32: torch.Tensor
     # edge-major layout (edges column-sorted)
     edge_col: torch.Tensor  # [E] — column of each edge
     col_edge_idx: torch.Tensor  # [num_col, dc_max] — edges of each column, E = pad
@@ -162,6 +171,7 @@ class DecoderTables:
             row_col_sm=row_col_sm,
             perm_sm_c2r32=idx["perm_sm_c2r"].to(torch.int32),
             row_col_sm32=row_col_sm.to(torch.int32),
+            **{f"{f}32": idx[f].to(torch.int32) for f in _CLASS_GATHERS},
             row_mask=torch.tensor(np.asarray(host["row_mask"]).astype(np.float32),
                                   device=device),
         )

@@ -14,10 +14,11 @@ irregular codes (5G) the degree-class core; both take the check rule
 :func:`two_phase_generic` gives any batch decoder (this one, the layered
 min-sum decoder) the exact two-phase schedule.
 
-On CUDA tensors a regular code with the sum-product rule and float32
-messages runs kernel K2 instead (``decoder/bp_cuda.py``), whose plain
-version is the slot-major core: :func:`fused_decode_engages` decides.  K2
-stops each codeword when its syndrome passes, so it needs neither the exit
+On CUDA tensors the sum-product rule with float32 messages runs a kernel
+instead (``decoder/bp_cuda.py``): K2 on a regular code, whose plain version
+is the slot-major core, and K3 on an irregular one, whose plain version is
+the degree-class core; :func:`fused_decode_engages` decides.  Both stop
+each codeword when its syndrome passes, so they need neither the exit
 checks below nor the two-phase schedule.
 
 Converged codewords freeze their outputs (hard decisions, iteration
@@ -241,11 +242,11 @@ def _batch_major(res: DecodeResult) -> DecodeResult:
 def fused_decode_engages(
     t: DecoderTables, chan_llr: torch.Tensor, cn_rule: str, msg_dtype: torch.dtype
 ) -> bool:
-    """Whether kernel K2 decodes ``chan_llr``: a regular code whose working
-    set fits a block's shared memory (``bp_cuda.fits``), the sum-product
-    rule, float32 messages and LLRs on a CUDA device."""
+    """Whether a kernel decodes ``chan_llr``: the sum-product rule, float32
+    messages, LLRs on a CUDA device, and a code that K2 (``bp_cuda.fits``:
+    regular) or K3 (``bp_cuda.fits_classes``: irregular) takes."""
     return (cn_rule == "sumprod" and msg_dtype == torch.float32
-            and chan_llr.device.type == "cuda" and bp_cuda.fits(t))
+            and chan_llr.device.type == "cuda" and (bp_cuda.fits(t) or bp_cuda.fits_classes(t)))
 
 
 def flooding_decode_em(
@@ -259,10 +260,12 @@ def flooding_decode_em(
     storage type of the c2v messages: float32 (the reference's) or
     bfloat16, which every read widens to float32 and every write rounds to
     nearest even, as XLA's convert does; node arithmetic stays float32.
-    Where :func:`fused_decode_engages` holds, kernel K2 decodes.
+    Where :func:`fused_decode_engages` holds, kernel K2 (a regular code) or
+    K3 (an irregular one) decodes.
     """
     if fused_decode_engages(t, chan_llr, cn_rule, msg_dtype):
-        return bp_cuda.launch_k2(t, chan_llr.to(torch.float32), iter_count)
+        launch = bp_cuda.launch_k2 if t.is_regular else bp_cuda.launch_k3
+        return launch(t, chan_llr.to(torch.float32), iter_count)
     llr_col = _insert_punct(t, chan_llr.to(torch.float32).T.contiguous())
     return _batch_major(_decode_cols(t, llr_col, iter_count, cn_rule, alpha, msg_dtype))
 

@@ -3,8 +3,9 @@
 
     bits -> encode -> map -> channel -> [K1 k-means + ambiguity metric]
          -> soft demap -> exact two-phase decode (flooding, or layered
-            min-sum; on the card, a regular code's float32 sum-product
-            flooding is kernel K2, the whole batch in one call)
+            min-sum; on the card, float32 sum-product flooding is kernel
+            K2 on a regular code and K3 on an irregular one, the whole batch
+            in one call)
          -> error counters
 
 It is split into a random front end (bits to channel outputs, drawn from one
@@ -67,8 +68,9 @@ class ChunkResult(NamedTuple):
     debug: tuple = ()
     # the final decode's per-codeword DecodeResult; () in histogram mode
     raw: tuple = ()
-    # codewords of the final decode that kernel K2 decoded (host int): the
-    # harness counts their iterations, which K2 ran exactly, at consume
+    # codewords of the final decode that kernel K2 or K3 decoded (host int):
+    # the harness counts their iterations, which the kernel ran exactly, at
+    # consume
     fused_blk: int = 0
 
 
@@ -274,7 +276,7 @@ def build_backend_fn(
                 if decode is not None:
                     raw = decode(chan_llr, spec.max_iter)
                 else:
-                    # K2 stops each codeword on its own: one tile of the whole batch
+                    # K2 and K3 stop each codeword on its own: one tile of the whole batch
                     if not layered and fused_decode_engages(tabs, chan_llr, cn_rule, msg_dtype):
                         fused_blk = batch
                     raw = two_phase_generic(

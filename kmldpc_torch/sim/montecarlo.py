@@ -440,9 +440,10 @@ class Simulator:
     def _count_launch(self, mean_iters: float, blocks: int, fused: int) -> None:
         """Counts a consumed launch under ``harness.launches``, and its
         needed codeword-iterations (this rank's share: the mean is over the
-        data ranks' blocks) under ``decode.cw_iters_needed``.  Kernel K2 runs
-        each of its ``fused`` codewords exactly the iterations it needs, so
-        their share of the same sum goes under ``decode.cw_iters_run``."""
+        data ranks' blocks) under ``decode.cw_iters_needed``.  Kernels K2 and
+        K3 run each of their ``fused`` codewords exactly the iterations it
+        needs, so their share of the same sum goes under
+        ``decode.cw_iters_run``."""
         count("launches", stage="harness")
         count("cw_iters_needed", round(mean_iters * blocks / self.grid.ndata), stage="decode")
         if fused:
@@ -452,7 +453,7 @@ class Simulator:
         """The decode's, the blind estimate's and the metric stage's
         counters since ``before`` (a ``snapshot()``), to the log file only:
         codeword-iterations run and needed, their ratio, host syncs, the
-        rows kernel K2 decoded and the rows whose gain was estimated."""
+        rows kernel K2 or K3 decoded and the rows whose gain was estimated."""
         now = snapshot()
         d = {k: v - before.get(k, 0) for k, v in now.items()}
         run, needed = d.get("decode.cw_iters_run", 0), d.get("decode.cw_iters_needed", 0)

@@ -15,9 +15,9 @@ as device work.  The spans:
   schedule's phase 1, its unconverged count, each phase-2 tile
   (``decoder/bp_em.py``);
 * ``exit_check``: a decoder loop's early-exit test, a host sync;
-* ``k1``, ``k2``: a launch of kernel K1 (``detect/kmeans_cuda.py``) or K2
-  (``decoder/bp_cuda.py``): launched through ``ctypes``, their kernels have
-  no operator of their own to be tied to;
+* ``k1``, ``k2``, ``k3``: a launch of kernel K1 (``detect/kmeans_cuda.py``),
+  K2 or K3 (``decoder/bp_cuda.py``): launched through ``ctypes``, their
+  kernels have no operator of their own to be tied to;
 * ``harness.build``, ``harness.consume``, ``harness.checkpoint``: the
   ``Simulator``'s set-up, its reads of a launch's counters, its checkpoint
   writes (``sim/montecarlo.py``).
@@ -27,11 +27,11 @@ under the chain label the host is in when it counts (``decode.syncs``,
 ``metric.cw_iters_run``, ...):
 
 * ``cw_iters_run``: codeword-iterations executed, the rows of a decoder core
-  call times the iterations its loop ran (for kernel K2's rows, counted by
-  the ``Simulator`` at consume: the iterations they needed);
+  call times the iterations its loop ran (for the rows of kernels K2 and
+  K3, counted by the ``Simulator`` at consume: the iterations they needed);
 * ``syncs``: host syncs of the decode, its exit checks and phase 2's
-  unconverged count (K2 counts its none);
-* ``fused_rows``: codewords kernel K2 decoded;
+  unconverged count (K2 and K3 count their none);
+* ``fused_rows``: codewords kernel K2 or K3 decoded;
 * ``kmeans.rows``: rows whose gain the blind estimate ran, counted by the
   chain whichever implementation ran them (K1, the plain loop);
 * ``decode.cw_iters_needed`` and ``harness.launches``: counted by the

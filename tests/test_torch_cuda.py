@@ -599,3 +599,191 @@ def test_k1_kernel_counts_under_the_chain_label(assets, cuda):
     assert k1 > 0 and s.by_label.get("kmeans", 0.0) >= k1
     assert trace.snapshot()["kmeans.rows"] == 128
     trace.reset()
+
+
+# --- kernel K3: the per-codeword flooding sum-product decode of an irregular code
+
+G5 = "5GLDPCBG2a3_R12_K960.txt"
+K3_LINKS = (12.0, 18.0, 24.0)  # known-h 16QAM, the grid of nr-bg2-16qam.known
+K3_BATCH = 2048
+# linkbench/traffic/nr-bg2-16qam.known.toml's [check]: rows whose iterations
+# or convergence differ, rows whose decisions differ, soft p90
+K3_LIMITS = dict(iters=0.002, decided=1e-4, soft=0.001)
+
+
+def _k3_link(assets, cuda, snr_db, b, seed, known_h=True):
+    """The 5G 16QAM link on the card: (tables, LLRs).  With known h the
+    final decode's [B, n]; blind, the [4B, n] candidate-folded rows the soft
+    metric decodes, from the chain's own K1 estimate and selector."""
+    from kmldpc_torch.decoder import flooding_decode_em
+    from kmldpc_torch.detect import make_ambiguity_selector
+    from kmldpc_torch.ops.modem import make_soft_demapper
+
+    code = load_code(str(assets / G5))
+    const = parse_constellation(str(assets / "4bit_16QAM_Gray.txt"))
+    spec = ChainSpec(code=code, constellation=const, known_h=known_h, fading=True,
+                     metric_type=True, metric_iter=5, max_iter=50, encoder_active=True)
+    var = torch.tensor(10.0 ** (-0.1 * snr_db), dtype=torch.float32, device=cuda)
+    params = make_chain_params(code, cuda)
+    _, yr, yi, hr, hi = build_frontend_fn(spec, b, cuda)(params, make_generator(seed, cuda), var)
+    tables = ModemTables.from_constellation(const, cuda)
+    if known_h:
+        return params.dec, make_soft_demapper(tables)(yr, yi, hr, hi, var)[1]
+    h4_r, h4_i = kmeans_cuda.make_blind_estimator_cuda(tables, 20, "max")(yr, yi)[:2]
+    rows = []
+
+    def keep(t, llr, it):
+        rows.append(llr)
+        return flooding_decode_em(t, llr, it)
+
+    make_ambiguity_selector(code, tables, True, 5, decode=keep)(params.dec, yr, yi, h4_r, h4_i,
+                                                                  var)
+    return params.dec, rows[0]
+
+
+def _plain_k3(t, llr, iter_count):
+    """K3's plain version on the card: the degree-class core, batch-major."""
+    from kmldpc_torch.decoder.bp_em import _batch_major, _decode_cols_classes, _insert_punct
+
+    return _batch_major(_decode_cols_classes(t, _insert_punct(t, llr.T.contiguous()), iter_count))
+
+
+def _k3_against_plain(t, llr, iter_count) -> bool:
+    """One launch of K3 against its plain version within K3_LIMITS, a second
+    launch bitwise the first; returns whether K3 is bitwise the plain core."""
+    from kmldpc_torch.decoder import bp_cuda, flooding_decode_em
+
+    before = bp_cuda.launch_k3.launches
+    k3 = flooding_decode_em(t, llr, iter_count)
+    again = flooding_decode_em(t, llr, iter_count)
+    assert bp_cuda.launch_k3.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(k3, again))
+    plain = _plain_k3(t, llr, iter_count)
+    iters_apart = (k3.iters != plain.iters) | (k3.converged != plain.converged)
+    decided_apart = (k3.cc_hat != plain.cc_hat).any(dim=1)
+    ss_err = (k3.soft_syndrome - plain.soft_syndrome).abs().amax(dim=1)
+    ss_err = torch.where(decided_apart | iters_apart, 1.0, ss_err)
+    assert float(iters_apart.float().mean()) <= K3_LIMITS["iters"]
+    assert float(decided_apart.float().mean()) <= K3_LIMITS["decided"]
+    assert float(torch.quantile(ss_err, 0.9)) <= K3_LIMITS["soft"]
+    assert torch.equal(k3.uu_hat, k3.cc_hat[:, t.info_start: t.info_start + t.code_dim])
+    assert int(k3.iters.max()) <= iter_count
+    return all(torch.equal(a, b) for a, b in zip(k3, plain))
+
+
+@pytest.mark.parametrize("snr_db", K3_LINKS)
+def test_k3_matches_degree_class_core_on_links(assets, cuda, snr_db):
+    """K3 against its plain version (the degree-class core) on the card, on
+    the known-h 16QAM 5G link, by the limits of nr-bg2-16qam.known."""
+    t, llr = _k3_link(assets, cuda, snr_db, K3_BATCH, 19)
+    assert _k3_against_plain(t, llr, 50)
+
+
+def test_k3_matches_degree_class_core_on_metric_rows(assets, cuda):
+    """K3 against the degree-class core on the soft metric's 4B
+    candidate-folded rows at metric_iter = 5, from a blind 16QAM front end
+    at the first point of nr-bg2-16qam.blind."""
+    t, llr = _k3_link(assets, cuda, 14.0, 1024, 23, known_h=False)
+    assert llr.shape == (4096, t.num_col - t.punct)
+    assert _k3_against_plain(t, llr, 5)
+
+
+def test_k3_engineered_rows(assets, cuda):
+    """Rows whose every LLR is 0; the all-zero word with strong LLRs, whose
+    punctured columns the checks alone decide; LLRs at the clip; rows of
+    strong random signs, which never converge and run the whole budget;
+    and a budget of 0 iterations: K3 is its plain version on each."""
+    from kmldpc_torch import constants
+    from kmldpc_torch.decoder import DecoderTables, flooding_decode_em
+
+    t = DecoderTables.from_code(load_code(str(assets / G5)), cuda)
+    n = t.num_col - t.punct
+    zero = torch.zeros((64, n), device=cuda)
+    assert _k3_against_plain(t, zero, 50)
+    strong = torch.full((64, n), 20.0, device=cuda)
+    assert _k3_against_plain(t, strong, 50)
+    res = flooding_decode_em(t, strong, 50)
+    assert bool(res.converged.all()) and not bool(res.cc_hat.any())
+    g = torch.Generator(device=cuda).manual_seed(5)
+    signs = (1 - 2 * torch.randint(0, 2, (64, n), generator=g, device=cuda)).float()
+    assert _k3_against_plain(t, constants.LLR_CLIP * signs.abs(), 50)
+    assert _k3_against_plain(t, 20.0 * signs, 50)
+    noise = flooding_decode_em(t, 20.0 * signs, 50)
+    assert bool((noise.iters == 50).all()) and not bool(noise.converged.any())
+    none = flooding_decode_em(t, 20.0 * signs, 0)
+    assert not bool(none.cc_hat.any()) and not bool(none.converged.any())
+    assert bool((none.iters == 0).all()) and bool((none.soft_syndrome == 1.0).all())
+    assert _k3_against_plain(t, 20.0 * signs, 0)
+
+
+def test_k3_makes_no_device_to_host_copy(assets, cuda):
+    """A K3 decode never synchronises, so it copies nothing to the host; it
+    counts its rows under ``fused_rows`` and its syncs (none) under
+    ``syncs``; the 5G chain hands it the whole batch of the final decode,
+    and a blind one also its soft metric's 4B rows, one launch each."""
+    from kmldpc_torch.decoder import bp_cuda, flooding_decode_em
+    from kmldpc_torch.utils import trace
+
+    t, llr = _k3_link(assets, cuda, 18.0, 1024, 3)
+    flooding_decode_em(t, llr, 50)  # builds and loads the library
+    torch.cuda.synchronize()
+    trace.reset()
+    before = bp_cuda.launch_k3.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with trace.label("decode"):
+            flooding_decode_em(t, llr, 50)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bp_cuda.launch_k3.launches == before + 1
+    assert trace.snapshot() == {"decode.fused_rows": 1024, "decode.syncs": 0}
+    code = load_code(str(assets / G5))
+    const = parse_constellation(str(assets / "4bit_16QAM_Gray.txt"))
+    params = make_chain_params(code, cuda)
+    var = torch.tensor(10**-1.5, dtype=torch.float32, device=cuda)
+    for known_h, launches in ((True, 1), (False, 2)):
+        spec = ChainSpec(code=code, constellation=const, known_h=known_h, fading=True,
+                         metric_type=True, metric_iter=5, max_iter=50, encoder_active=True)
+        front = build_frontend_fn(spec, 256, cuda)(params, make_generator(9, cuda), var)
+        trace.reset()
+        before = bp_cuda.launch_k3.launches
+        res = build_backend_fn(spec, 256, cuda)(params, *front, var)
+        assert bp_cuda.launch_k3.launches == before + launches and res.fused_blk == 256
+        counts = trace.snapshot()
+        assert counts["decode.fused_rows"] == 256 and counts["decode.syncs"] == 0
+        assert counts.get("metric.fused_rows", 0) == (0 if known_h else 1024)
+    trace.reset()
+
+
+def test_k3_kernel_counts_under_the_chain_label(assets, cuda):
+    """In a traced blind 5G launch, as the benchmark reduces it, K3's kernel
+    is device time under the chain label its launch sits in, ``metric`` for
+    the soft metric's decode and ``decode`` for the final one, tied to it by
+    the span ``k3``."""
+    from torch.autograd.profiler import record_function
+
+    from kmldpc_torch.utils import trace
+    from linkbench.trace import SWEEP_SPAN, _profile, reduce
+
+    code = load_code(str(assets / G5))
+    const = parse_constellation(str(assets / "4bit_16QAM_Gray.txt"))
+    spec = ChainSpec(code=code, constellation=const, known_h=False, fading=True,
+                     metric_type=True, metric_iter=5, max_iter=50, encoder_active=True)
+    var = torch.tensor(10**-1.4, dtype=torch.float32, device=cuda)
+    params = make_chain_params(code, cuda)
+    front = build_frontend_fn(spec, 512, cuda)(params, make_generator(7, cuda), var)
+    backend = build_backend_fn(spec, 512, cuda)
+    backend(params, *front, var)  # builds and loads the library
+    torch.cuda.synchronize()
+    with _profile() as prof:
+        with record_function(SWEEP_SPAN):
+            backend(params, *front, var)
+            torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    assert any(e.name() == "k3" for e in events)
+    s = reduce(events)
+    k3 = s.kernel_s("bp_classes_kernel")
+    assert k3 > 0 and "bp_flood_kernel" not in " ".join(s.by_kernel)
+    assert s.by_label.get("decode", 0.0) > 0 and s.by_label.get("metric", 0.0) > 0
+    assert s.by_label["decode"] + s.by_label["metric"] >= k3
+    trace.reset()

@@ -40,16 +40,19 @@ def tabs(assets):
 @pytest.mark.parametrize("code,cn_rule,dtype,on_card,engages", [
     ("peg2304", "sumprod", torch.float32, True, True),
     ("peg8064", "sumprod", torch.float32, True, True),
-    ("5g", "sumprod", torch.float32, True, False),
+    ("5g", "sumprod", torch.float32, True, True),
     ("peg2304", "minsum", torch.float32, True, False),
     ("peg2304", "sumprod", torch.bfloat16, True, False),
     ("peg2304", "sumprod", torch.float32, False, False),
 ], ids=["peg2304", "peg8064", "5g-irregular", "minsum", "bfloat16", "cpu-tensors"])
 def test_k2_engages_only_on_regular_sumprod_float32_cuda(tabs, code, cn_rule, dtype, on_card,
                                                          engages):
+    """K2 takes the regular codes and refuses the 5G code, which is
+    irregular: there the predicate engages through K3 instead."""
     t = tabs[code]
     llr = CARD if on_card else torch.zeros((2, t.num_col - t.punct))
     assert fused_decode_engages(t, llr, cn_rule, dtype) is engages
+    assert bp_cuda.fits(t) is t.is_regular and bp_cuda.fits_classes(t) is not t.is_regular
 
 
 @pytest.mark.parametrize("change", [dict(dr=33), dict(num_col=40000, num_row=20000)],
