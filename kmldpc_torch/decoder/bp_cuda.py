@@ -8,10 +8,10 @@ K2's plain version is the slot-major core
 ``decoder/bp_em.py::_decode_cols_padded``, K3's the degree-class core
 ``_decode_cols_classes``, each with ``cn_rule="sumprod"`` and float32
 messages, which the CPU keeps running.  ``bp_em.fused_decode_engages``
-decides where a kernel runs, and ``bp_em.flooding_decode_em`` launches the
-one the code takes there; :func:`launch_k2` and :func:`launch_k3` take CUDA
-tensors only and raise on anything else, before they load the library.  A
-launch makes no copy from the device and no synchronisation.  It runs
+decides where a kernel runs, and the decoder of ``bp_em.flooding_decoder``
+launches the one the code takes there; :func:`launch_k2` and
+:func:`launch_k3` take CUDA tensors only and raise on anything else,
+before they load the library.  A launch makes no copy from the device and no synchronisation.  It runs
 inside the span ``k2`` or ``k3``: a kernel launched through ``ctypes`` has
 no PyTorch operator around it, and the span is what ties it, on a
 profiler's timeline, to the chain label the host is in.  Each launch adds

@@ -17,9 +17,9 @@ min-sum decoder) the exact two-phase schedule.
 On CUDA tensors the sum-product rule with float32 messages runs a kernel
 instead (``decoder/bp_cuda.py``): K2 on a regular code, whose plain version
 is the slot-major core, and K3 on an irregular one, whose plain version is
-the degree-class core; :func:`fused_decode_engages` decides.  Both stop
-each codeword when its syndrome passes, so they need neither the exit
-checks below nor the two-phase schedule.
+the degree-class core; :func:`flooding_decoder` alone decides, once a
+decode.  Both stop each codeword when its syndrome passes, so they need
+neither the exit checks below nor the two-phase schedule.
 
 Converged codewords freeze their outputs (hard decisions, iteration
 count, soft syndrome); the message array keeps updating, and as every
@@ -249,6 +249,29 @@ def fused_decode_engages(
             and chan_llr.device.type == "cuda" and (bp_cuda.fits(t) or bp_cuda.fits_classes(t)))
 
 
+def flooding_decoder(
+    t: DecoderTables, chan_llr: torch.Tensor, cn_rule: str = "sumprod",
+    alpha: float = 0.75, msg_dtype: torch.dtype = torch.float32,
+) -> Callable[[torch.Tensor, int], DecodeResult]:
+    """``decode(llr, iter_count) -> DecodeResult`` for ``chan_llr`` and
+    sub-batches of its rows, as :func:`flooding_decode_em` decodes.  It asks
+    :func:`fused_decode_engages` once: ``decode.per_codeword`` says whether
+    K2 or K3 runs each codeword to its own convergence (else the eager core).
+    """
+    per_codeword = fused_decode_engages(t, chan_llr, cn_rule, msg_dtype)
+    launch = bp_cuda.launch_k2 if t.is_regular else bp_cuda.launch_k3
+
+    def decode(llr: torch.Tensor, iter_count: int) -> DecodeResult:
+        llr = llr.to(torch.float32)
+        if per_codeword:
+            return launch(t, llr, iter_count)
+        llr_col = _insert_punct(t, llr.T.contiguous())
+        return _batch_major(_decode_cols(t, llr_col, iter_count, cn_rule, alpha, msg_dtype))
+
+    decode.per_codeword = per_codeword  # type: ignore[attr-defined]
+    return decode
+
+
 def flooding_decode_em(
     t: DecoderTables, chan_llr: torch.Tensor, iter_count: int, cn_rule: str = "sumprod",
     alpha: float = 0.75, msg_dtype: torch.dtype = torch.float32,
@@ -261,13 +284,9 @@ def flooding_decode_em(
     bfloat16, which every read widens to float32 and every write rounds to
     nearest even, as XLA's convert does; node arithmetic stays float32.
     Where :func:`fused_decode_engages` holds, kernel K2 (a regular code) or
-    K3 (an irregular one) decodes.
+    K3 (an irregular one) decodes (:func:`flooding_decoder`).
     """
-    if fused_decode_engages(t, chan_llr, cn_rule, msg_dtype):
-        launch = bp_cuda.launch_k2 if t.is_regular else bp_cuda.launch_k3
-        return launch(t, chan_llr.to(torch.float32), iter_count)
-    llr_col = _insert_punct(t, chan_llr.to(torch.float32).T.contiguous())
-    return _batch_major(_decode_cols(t, llr_col, iter_count, cn_rule, alpha, msg_dtype))
+    return flooding_decoder(t, chan_llr, cn_rule, alpha, msg_dtype)(chan_llr, iter_count)
 
 
 def two_phase_generic(
@@ -286,11 +305,14 @@ def two_phase_generic(
     sub-batches with the full budget.  The decoder is deterministic per
     codeword, so outputs equal ``decode``'s on the whole batch; only wasted
     work changes.  The last tile starts at ``b - tile`` and may re-decode
-    converged codewords, which rewrites identical values.
+    converged codewords, which rewrites identical values.  A decoder whose
+    ``per_codeword`` attribute is true (:func:`flooding_decoder` on K2 or
+    K3) stops each codeword on its own: it gets one call on the whole batch
+    with the whole budget.
     """
     b = chan_llr.shape[0]
     tile = min(max(8, tile), b)
-    if tile >= b or phase1_iters >= iter_count:
+    if getattr(decode, "per_codeword", False) or tile >= b or phase1_iters >= iter_count:
         return decode(chan_llr, iter_count)
     with span("decode.phase1"):
         uu_hat, cc_hat, conv, iters, ss = decode(chan_llr, phase1_iters)

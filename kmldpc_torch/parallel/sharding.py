@@ -41,7 +41,8 @@ def reduce_launch(res: ChunkResult, grid: Grid, gather: bool) -> ChunkResult:
 
     ``gather`` also concatenates the per-block surfaces the harness reads
     (metrics, debug, k-means) over the data group in rank order, which is
-    shard order; the decode results stay rank-local.
+    shard order; the decode results, and whether the final decode ran per
+    codeword, stay rank-local.
     """
     group = grid.data_group
     counts = all_reduce(torch.stack([res.err_bit, res.err_blk]).to(torch.int64), group)
@@ -51,7 +52,7 @@ def reduce_launch(res: ChunkResult, grid: Grid, gather: bool) -> ChunkResult:
         metrics = all_gather_cat(metrics, group)
         debug = _gather(debug, group)
         kmeans_diag = _gather(kmeans_diag, group)
-    return ChunkResult(
+    return res._replace(
         err_bit=counts[0],
         err_blk=counts[1],
         tot_bit=res.tot_bit * grid.ndata,
@@ -61,8 +62,6 @@ def reduce_launch(res: ChunkResult, grid: Grid, gather: bool) -> ChunkResult:
         iters=floats[1] / grid.ndata,
         kmeans_diag=kmeans_diag,
         debug=debug,
-        raw=res.raw,
-        fused_blk=res.fused_blk * grid.ndata,
     )
 
 

@@ -5,7 +5,7 @@
          -> soft demap -> exact two-phase decode (flooding, or layered
             min-sum; on the card, float32 sum-product flooding is kernel
             K2 on a regular code and K3 on an irregular one, the whole batch
-            in one call)
+            in one call, as the decoder itself decides)
          -> error counters
 
 It is split into a random front end (bits to channel outputs, drawn from one
@@ -32,7 +32,7 @@ from ..code.ldpc import LDPCCode
 from ..config import Config
 from ..device import resolve_device
 from ..decoder.bp import DecodeResult
-from ..decoder.bp_em import flooding_decode_em, fused_decode_engages, two_phase_generic
+from ..decoder.bp_em import flooding_decoder, two_phase_generic
 from ..decoder.minsum import layered_minsum_decode
 from ..detect.kmeans import add_diagnostics, make_blind_estimator
 from ..detect.kmeans_cuda import make_blind_estimator_cuda
@@ -68,10 +68,10 @@ class ChunkResult(NamedTuple):
     debug: tuple = ()
     # the final decode's per-codeword DecodeResult; () in histogram mode
     raw: tuple = ()
-    # codewords of the final decode that kernel K2 or K3 decoded (host int):
-    # the harness counts their iterations, which the kernel ran exactly, at
-    # consume
-    fused_blk: int = 0
+    # whether the final decode ran each codeword to its own convergence
+    # (kernel K2 or K3), as its decoder reports: the harness counts those
+    # iterations, which the kernel ran exactly, at consume
+    per_codeword: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,19 +220,20 @@ def build_backend_fn(
     cn_rule = "minsum" if spec.schedule == "flooding-minsum" else "sumprod"
     match = spec.metric_schedule == "match"
 
-    def batch_decode(tabs, llr, it, msg_dtype=torch.float32):
-        """The schedule's decoder on ``tabs`` (``params.ms`` if layered,
-        else ``params.dec``); ``msg_dtype`` applies to flooding only."""
+    def decoder(tabs, llr, msg_dtype=torch.float32):
+        """The schedule's batch decoder of ``llr``'s rows on ``tabs`` (``params.ms``
+        if layered, else ``params.dec``); ``msg_dtype`` applies to flooding only."""
         if layered:
-            return layered_minsum_decode(tabs, llr, it, spec.minsum_alpha)
-        return flooding_decode_em(tabs, llr, it, cn_rule, spec.minsum_alpha, msg_dtype)
+            return lambda x, it: layered_minsum_decode(tabs, x, it, spec.minsum_alpha)
+        return flooding_decoder(tabs, llr, cn_rule, spec.minsum_alpha, msg_dtype)
 
     select = None
     if not spec.known_h or spec.histogram:
         # "match" decodes the metric with the final schedule, in float32
         select = make_ambiguity_selector(
             code, tables, spec.metric_type, spec.metric_iter,
-            decode=batch_decode if match and metric_fn is None else None,
+            decode=(lambda t, llr, it: decoder(t, llr)(llr, it))
+            if match and metric_fn is None else None,
             prune_complement=spec.metric_prune, metric_fn=metric_fn,
         )
     tile = spec.tile or max(8, batch // 8)
@@ -242,7 +243,7 @@ def build_backend_fn(
         tabs = params.ms if layered else params.dec
         sel_tabs = tabs if match else params.dec
         kmeans_diag = debug = raw = ()
-        fused_blk = 0
+        per_codeword = False
         if spec.known_h:
             if spec.histogram:
                 # one metric per block, over the single candidate true h;
@@ -276,14 +277,10 @@ def build_backend_fn(
                 if decode is not None:
                     raw = decode(chan_llr, spec.max_iter)
                 else:
-                    # K2 and K3 stop each codeword on its own: one tile of the whole batch
-                    if not layered and fused_decode_engages(tabs, chan_llr, cn_rule, msg_dtype):
-                        fused_blk = batch
-                    raw = two_phase_generic(
-                        lambda llr, it: batch_decode(tabs, llr, it, msg_dtype),
-                        chan_llr, spec.max_iter, phase1_iters=spec.phase1_iters,
-                        tile=batch if fused_blk else tile,
-                    )
+                    final = decoder(tabs, chan_llr, msg_dtype)
+                    raw = two_phase_generic(final, chan_llr, spec.max_iter,
+                                            phase1_iters=spec.phase1_iters, tile=tile)
+                    per_codeword = getattr(final, "per_codeword", False)
             uu_hat, iters = raw.uu_hat, raw.iters.to(torch.float32).mean()
         with label("counters"):
             errs = (uu != uu_hat).sum(dim=1, dtype=torch.int32)  # [B]
@@ -299,7 +296,7 @@ def build_backend_fn(
                 kmeans_diag=kmeans_diag,
                 debug=debug,
                 raw=raw,
-                fused_blk=fused_blk,
+                per_codeword=per_codeword,
             )
 
     return backend
@@ -343,7 +340,7 @@ def _concat(rs: list[ChunkResult]) -> ChunkResult:
         kmeans_diag=cat([r.kmeans_diag for r in rs]),
         debug=cat([r.debug for r in rs]),
         raw=cat([r.raw for r in rs]),
-        fused_blk=sum(r.fused_blk for r in rs),
+        per_codeword=rs[0].per_codeword,
     )
 
 

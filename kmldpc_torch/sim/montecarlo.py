@@ -74,6 +74,9 @@ class _Counters:
     chunks: int = 0
     err_bit_sq: float = 0.0
 
+    def __post_init__(self) -> None:
+        self.printed = self.tot_blk  # blocks at the last printed result; not checkpointed
+
     @property
     def ber(self) -> float:
         return self.err_bit / self.tot_bit if self.tot_bit else 0.0
@@ -101,6 +104,11 @@ class _Counters:
 def _np(a) -> np.ndarray:
     """A tensor (on any device) or a number as a NumPy array."""
     return a.detach().cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+# what Simulator._add_launch reads of a consumed launch's ChunkResult
+_LAUNCH_FIELDS = ("err_bit", "err_blk", "tot_bit", "tot_blk", "err_bit_sq", "iters",
+                  "per_codeword")
 
 
 class Simulator:
@@ -296,14 +304,13 @@ class Simulator:
         t0 = time.monotonic()
         max_blk = cfg.range.maximum_block_number
         max_err = cfg.range.maximum_error_number
-        last_print = c.tot_blk
         km_dump_pending = bool(cfg.tpu.kmeans_dump_dir) and self.spec.kmeans_dump
         debug_pending = self.spec.debug_blocks > 0
         device_of_counters = None
         before = snapshot()
 
         def consume(res: ChunkResult) -> None:
-            nonlocal last_print, km_dump_pending, debug_pending, device_of_counters
+            nonlocal km_dump_pending, debug_pending, device_of_counters
             with span("harness.consume"):
                 device_of_counters = res.err_bit.device
                 if km_dump_pending and res.kmeans_diag:
@@ -313,20 +320,9 @@ class Simulator:
                 if debug_pending and res.debug:
                     self._log_debug_blocks(res, c.tot_blk)
                     debug_pending = False  # first launch of the point only
-                c.chunks += 1  # consumed launches: the checkpoint/resume cursor
-                c.err_bit += int(res.err_bit)
-                c.err_blk += int(res.err_blk)
-                c.tot_bit += int(res.tot_bit)
-                c.tot_blk += int(res.tot_blk)
-                c.err_bit_sq += float(res.err_bit_sq)
+                self._add_launch(snr, c, [getattr(res, f) for f in _LAUNCH_FIELDS])
                 if histogram_file is not None:
                     self._write_histogram(histogram_file, _np(res.metrics))
-                iters = float(res.iters)
-                self._count_launch(iters, int(res.tot_blk), int(res.fused_blk))
-                self.log.info(f"chunk {c.chunks}: mean BP iters = {iters:.2f}", to_stdout=False)
-                if c.tot_blk - last_print >= 100 or c.tot_blk >= max_blk or c.err_blk >= max_err:
-                    self._print_result(snr, c)
-                    last_print = c.tot_blk
                 if save_partial is not None:
                     save_partial(c)
 
@@ -437,17 +433,38 @@ class Simulator:
                 f"hatIndex = {int(np.argmin(metrics[j]))}", to_stdout=False
             )
 
-    def _count_launch(self, mean_iters: float, blocks: int, fused: int) -> None:
+    def _add_launch(self, snr: float, c: _Counters, launch, tag: str = "") -> None:
+        """One consumed launch (its ``_LAUNCH_FIELDS``) added to point
+        ``snr``'s counters ``c`` and counted, its chunk line logged (``tag``
+        after the number), the point printed every 100 blocks and at a cap."""
+        err_bit, err_blk, tot_bit, tot_blk, err_bit_sq, iters, per_codeword = launch
+        c.chunks += 1  # consumed launches: the checkpoint/resume cursor
+        c.err_bit += int(err_bit)
+        c.err_blk += int(err_blk)
+        c.tot_bit += int(tot_bit)
+        c.tot_blk += int(tot_blk)
+        c.err_bit_sq += float(err_bit_sq)
+        self._count_launch(float(iters), int(tot_blk), bool(per_codeword))
+        self.log.info(f"chunk {c.chunks}{tag}: mean BP iters = {float(iters):.2f}",
+                      to_stdout=False)
+        rng = self.cfg.range
+        if (c.tot_blk - c.printed >= 100 or c.tot_blk >= rng.maximum_block_number
+                or c.err_blk >= rng.maximum_error_number):
+            self._print_result(snr, c)
+            c.printed = c.tot_blk
+
+    def _count_launch(self, mean_iters: float, blocks: int, per_codeword: bool) -> None:
         """Counts a consumed launch under ``harness.launches``, and its
         needed codeword-iterations (this rank's share: the mean is over the
-        data ranks' blocks) under ``decode.cw_iters_needed``.  Kernels K2 and
-        K3 run each of their ``fused`` codewords exactly the iterations it
-        needs, so their share of the same sum goes under
+        data ranks' blocks) under ``decode.cw_iters_needed``.  Where its
+        final decode ran per codeword (kernel K2 or K3), each codeword ran
+        exactly the iterations it needs, so the same sum goes under
         ``decode.cw_iters_run``."""
+        needed = round(mean_iters * blocks / self.grid.ndata)
         count("launches", stage="harness")
-        count("cw_iters_needed", round(mean_iters * blocks / self.grid.ndata), stage="decode")
-        if fused:
-            count("cw_iters_run", round(mean_iters * fused / self.grid.ndata), stage="decode")
+        count("cw_iters_needed", needed, stage="decode")
+        if per_codeword:
+            count("cw_iters_run", needed, stage="decode")
 
     def _log_counters(self, what: str, before: dict) -> None:
         """The decode's, the blind estimate's and the metric stage's
@@ -550,7 +567,6 @@ class Simulator:
         done: dict[float, bool] = {}
         launched: dict[float, int] = {}
         inflight: dict[float, int] = {}
-        last_print: dict[float, int] = {}
         blk0: dict[float, int] = {}  # blocks already done before this run
         # per-point wall attribution: each consume's wall delta is split
         # evenly over the dispatch's valid slots, so the per-point wall_s sum
@@ -569,7 +585,6 @@ class Simulator:
             done[snr] = bool(saved and saved.get("done"))
             launched[snr] = c.chunks
             inflight[snr] = 0
-            last_print[snr] = c.tot_blk
             wall_attr[snr] = 0.0
             debug_pending[snr] = self.spec.debug_blocks > 0
             if saved and not done[snr]:
@@ -593,9 +608,7 @@ class Simulator:
             nonlocal t_mark
             with span("harness.consume"):
                 slots, res = dispatch
-                err_bit, err_blk, tot_bit, tot_blk, err_sq, iters, fused_blk = (
-                    _np(a) for a in (res.err_bit, res.err_blk, res.tot_bit, res.tot_blk,
-                                     res.err_bit_sq, res.iters, res.fused_blk))
+                cols = [_np(getattr(res, f)) for f in _LAUNCH_FIELDS]
                 now = time.monotonic()
                 n_valid = sum(1 for _, v in slots if v)
                 dt_slot = (now - t_mark) / n_valid if n_valid else 0.0
@@ -610,32 +623,17 @@ class Simulator:
                     inflight[snr] -= 1
                     wall_attr[snr] += dt_slot
                     c = cs[snr]
-                    c.chunks += 1
-                    c.err_bit += int(err_bit[j])
-                    c.err_blk += int(err_blk[j])
-                    c.tot_bit += int(tot_bit[j])
-                    c.tot_blk += int(tot_blk[j])
-                    c.err_bit_sq += float(err_sq[j])
+                    if debug_pending[snr] and res.debug:
+                        # first consumed launch of the point only, like the
+                        # sequential path
+                        self._log_debug_blocks(res, c.tot_blk, slot=j)
+                        debug_pending[snr] = False
+                    self._add_launch(snr, c, [col[j] for col in cols], f" [snr {snr:.3f}]")
                     if cfg.histogram.enable and self.primary:
                         f = hist_files.get(snr)
                         if f is None:
                             f = hist_files[snr] = open(f"histogram_{snr:.6f}.txt", "w")
                         self._write_histogram(f, _np(res.metrics[j]))
-                    if debug_pending[snr] and res.debug:
-                        # first consumed launch of the point only, like the
-                        # sequential path
-                        self._log_debug_blocks(res, c.tot_blk - int(tot_blk[j]), slot=j)
-                        debug_pending[snr] = False
-                    self._count_launch(float(iters[j]), int(tot_blk[j]), int(fused_blk[j]))
-                    self.log.info(
-                        f"chunk {c.chunks} [snr {snr:.3f}]: "
-                        f"mean BP iters = {float(iters[j]):.2f}",
-                        to_stdout=False,
-                    )
-                    if (c.tot_blk - last_print[snr] >= 100 or c.tot_blk >= max_blk
-                            or c.err_blk >= max_err):
-                        self._print_result(snr, c)
-                        last_print[snr] = c.tot_blk
                     if self._ckpt_path():
                         save_point(snr)
                 if self._ckpt_path():

@@ -540,7 +540,7 @@ def test_k2_makes_no_device_to_host_copy(assets, cuda):
     front = build_frontend_fn(spec, 256, cuda)(params, make_generator(9, cuda), var)
     before = bp_cuda.launch_k2.launches
     res = build_backend_fn(spec, 256, cuda)(params, *front, var)
-    assert bp_cuda.launch_k2.launches == before + 1 and res.fused_blk == 256
+    assert bp_cuda.launch_k2.launches == before + 1 and res.per_codeword is True
     trace.reset()
 
 
@@ -748,7 +748,7 @@ def test_k3_makes_no_device_to_host_copy(assets, cuda):
         trace.reset()
         before = bp_cuda.launch_k3.launches
         res = build_backend_fn(spec, 256, cuda)(params, *front, var)
-        assert bp_cuda.launch_k3.launches == before + launches and res.fused_blk == 256
+        assert bp_cuda.launch_k3.launches == before + launches and res.per_codeword is True
         counts = trace.snapshot()
         assert counts["decode.fused_rows"] == 256 and counts["decode.syncs"] == 0
         assert counts.get("metric.fused_rows", 0) == (0 if known_h else 1024)

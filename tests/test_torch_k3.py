@@ -13,14 +13,15 @@ import torch
 from kmldpc_torch.code import load_code
 from kmldpc_torch.config import load_config
 from kmldpc_torch.decoder import DecoderTables, bp_cuda, bp_em
-from kmldpc_torch.decoder.bp_em import flooding_decode_em, fused_decode_engages
-from kmldpc_torch.detect import metric
+from kmldpc_torch.decoder.bp_em import fused_decode_engages
 from kmldpc_torch.io import parse_constellation
 from kmldpc_torch.ops import make_generator
 from kmldpc_torch.params import make_chain_params
-from kmldpc_torch.sim import Simulator, chain
+from kmldpc_torch.sim import Simulator
 from kmldpc_torch.sim.chain import ChainSpec, build_backend_fn, build_frontend_fn
 from kmldpc_torch.utils import SimLogger, trace
+
+from .test_torch_k2 import _plain_kernels
 
 CARD = types.SimpleNamespace(device=torch.device("cuda", 0))  # LLRs as if on a card
 G5 = "5GLDPCBG2a3_R12_K960.txt"
@@ -133,9 +134,10 @@ def test_k3_wrapper_raises_before_loading_the_library(t5, monkeypatch, llr, erro
 @pytest.mark.parametrize("engaged", [True, False], ids=["k3-whole-batch", "two-phase"])
 def test_chain_hands_k3_the_whole_batch(assets, g5, monkeypatch, engaged, known_h):
     """Where K3 engages the 5G chain makes one final decode call on the
-    whole batch with the whole budget, else phase 1 and tiles of B/8; a
-    blind chain's soft metric decodes its 4B candidate rows in one call of
-    ``metric_iter`` either way; counters and results are the same."""
+    whole batch with the whole budget, else phase 1 and tiles of B/8, and
+    reports the decoder's answer; a blind chain's soft metric decodes its
+    4B candidate rows in one call of ``metric_iter`` either way; counters
+    and results are the same."""
     const = parse_constellation(str(assets / "4bit_16QAM_Gray.txt"))
     spec = ChainSpec(code=g5, constellation=const, known_h=known_h, fading=True,
                      metric_type=True, metric_iter=5, max_iter=50, encoder_active=True)
@@ -143,26 +145,18 @@ def test_chain_hands_k3_the_whole_batch(assets, g5, monkeypatch, engaged, known_
     var = torch.tensor(10 ** -1.4, dtype=torch.float32)
     params = make_chain_params(g5, "cpu")
     front = build_frontend_fn(spec, b, "cpu")(params, make_generator(7, "cpu"), var)
-    calls = []
-
-    def stub(t, llr, it, *args):
-        calls.append((llr.shape[0], it))
-        return flooding_decode_em(t, llr, it, *args)
-
     want = build_backend_fn(spec, b, "cpu")(params, *front, var)
-    monkeypatch.setattr(chain, "flooding_decode_em", stub)
-    monkeypatch.setattr(metric, "flooding_decode_em", stub)
-    monkeypatch.setattr(chain, "fused_decode_engages", lambda *a: engaged)
+    calls = _plain_kernels(monkeypatch, engaged)
     got = build_backend_fn(spec, b, "cpu")(params, *front, var)
     soft = [] if known_h else [(4 * b, 5)]
     assert calls[:len(soft)] == soft
     final = calls[len(soft):]
     if engaged:
-        assert final == [(b, 50)] and got.fused_blk == b
+        assert final == [(b, 50)] and got.per_codeword is True
     else:
-        assert final[0] == (b, spec.phase1_iters) and got.fused_blk == 0
+        assert final[0] == (b, spec.phase1_iters) and got.per_codeword is False
         assert len(final) > 1 and all(call == (b // 8, 50) for call in final[1:])
-    assert int(got.err_bit) == int(want.err_bit) and want.fused_blk == 0
+    assert int(got.err_bit) == int(want.err_bit) and want.per_codeword is False
     assert torch.equal(got.metrics, want.metrics)
     for f, a in zip(want.raw._fields, want.raw):
         assert torch.equal(a, getattr(got.raw, f)), f
@@ -185,7 +179,6 @@ def test_harness_counts_k3_rows_at_consume(assets, monkeypatch):
 
     k3.rows = 0
     monkeypatch.setattr(bp_em, "fused_decode_engages", lambda *a: True)
-    monkeypatch.setattr(chain, "fused_decode_engages", lambda *a: True)
     monkeypatch.setattr(bp_cuda, "launch_k3", k3)
     cfg = load_config(str(assets.parent / SWEEP3))
     cfg = dataclasses.replace(
