@@ -43,10 +43,20 @@ Phases (any failure raises and exits non-zero):
    and the eager two-phase decode the chain ran before K3, beside the bound,
    the registers a thread and the codewords an SM; K3's launches are counted
    over phase 5's sweeps;
+3d. K4 against the plain soft demapper on each cell's launch: PEG8064
+   64QAM at B = 4096, 5G 16QAM at B = 32768 with 4 candidates and with
+   one, PEG2304 QPSK at B = 16384 (random symbols over Rayleigh gains on
+   the card): bitwise the plain version (K4 sums in the order of PyTorch's
+   CUDA reductions), two launches bitwise equal; CUDA events time the
+   kernel alone, the wrapper and the plain version, beside the bound (bytes
+   at 3.35 TB/s, or one MUFU exponential a point a symbol-candidate); K4's
+   launches are counted on the main path (phase 4) and, apart, over phase
+   5's sweeps;
 4. main path: ``kmldpc_torch.__main__.main`` on
-   configs/main_path_blind_qpsk.toml restricted to 15 dB, with K1's and
-   K2's launch counts reset just before and read just after, then the same
-   point three more times, warm, for its blocks/s;
+   configs/main_path_blind_qpsk.toml restricted to 15 dB, with K1's, K2's
+   and K4's launch counts reset just before and read just after (each must
+   be above 0), then the same point three more times, warm, for its
+   blocks/s;
 5. parity: the full 7-point sweep of that config, blind and known-h
    (sequential), then all eleven sweeps of benchmarks/parity/configs in
    one call of ``kmldpc_torch.campaign.run_campaign``, which writes one
@@ -751,11 +761,119 @@ def phase_k3(dev: torch.device, ops_rate: float) -> dict:
     )
 
 
-def phase_main_path(card: str, dev: torch.device) -> tuple[int, int]:
+# K4's cases: (name, table, symbols a codeword, candidates a codeword, B, SNR
+# in dB): each cell's launch, the 5G one both blind and with known h
+K4_CASES = (
+    ("PEG8064 64QAM", "6bits_64QAM_Gray.txt", 1344, 4, 4096, 20.0),
+    ("5G 16QAM", "4bit_16QAM_Gray.txt", 480, 4, 32768, 19.0),
+    ("5G 16QAM known", "4bit_16QAM_Gray.txt", 480, 1, 32768, 18.0),
+    ("PEG2304 QPSK", "2bits_QPSK.txt", 1152, 4, 16384, 12.5),
+)
+# an SM's special-function units take 16 operations a clock against 128
+# float32 lanes: the rate of K4's accurate expf, one MUFU.EX2 each
+MUFU_SHARE = 16 / 128
+
+
+def k4_bound_ms(b: int, nc: int, nsym: int, m_points: int, ops_rate: float) -> tuple[float, str]:
+    """K4's least time: y read once, bit_p0 and the LLRs written once
+    (float32), and one exponential a point a symbol-candidate."""
+    m = m_points.bit_length() - 1
+    bytes_s = (2 * 4 * b * nsym + 2 * 4 * b * nc * nsym * m) / HBM_BYTES_PER_S
+    exp_s = b * nc * nsym * m_points / (ops_rate * MUFU_SHARE)
+    return max(bytes_s, exp_s) * 1e3, "bytes" if bytes_s >= exp_s else "exponentials"
+
+
+def phase_k4(dev: torch.device, ops_rate: float) -> dict:
+    """Kernel K4 against the plain soft demapper on each cell's launch:
+    bitwise equal (the largest |LLR - plain| and the decisions apart are
+    printed), two launches bitwise equal; then CUDA events time the kernel
+    alone, the wrapper and the plain version, beside the bound."""
+    from kmldpc_torch import _build, constants
+    from kmldpc_torch.io import parse_constellation
+    from kmldpc_torch.ops import demap_cuda
+    from kmldpc_torch.ops.modem import ModemTables, make_plain_soft_demapper, make_soft_demapper
+
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+    for name, table, nsym, nc, b, snr in K4_CASES:
+        const = parse_constellation(os.path.join(HERE, "assets", table))
+        tables = ModemTables.from_constellation(const, dev)
+        demap, plain = make_soft_demapper(tables), make_plain_soft_demapper(tables)
+        gen = torch.Generator(device=dev).manual_seed(23)
+        var = torch.tensor(10.0 ** (-0.1 * snr), dtype=torch.float32, device=dev)
+        h = torch.randn((b, 2), generator=gen, device=dev) * 0.5 ** 0.5
+        idx = torch.randint(0, const.num_points, (b, nsym), generator=gen, device=dev)
+        sr, si = tables.points_re[idx], tables.points_im[idx]
+        w = torch.randn((b, nsym, 2), generator=gen, device=dev) * torch.sqrt(var / 2)
+        yr = (h[:, :1] * sr - h[:, 1:] * si + w[..., 0]).contiguous()
+        yi = (h[:, :1] * si + h[:, 1:] * sr + w[..., 1]).contiguous()
+        rot = torch.tensor([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [0.0, -1.0]], device=dev)[:nc]
+        hr = (h[:, :1] * rot[:, 0] - h[:, 1:] * rot[:, 1]).contiguous()
+        hi = (h[:, :1] * rot[:, 1] + h[:, 1:] * rot[:, 0]).contiguous()
+        if nc == 1:
+            hr, hi = hr[:, 0].contiguous(), hi[:, 0].contiguous()
+        before = demap_cuda.launch_k4.launches
+        p0_k, llr_k = demap(yr, yi, hr, hi, var)
+        again = demap(yr, yi, hr, hi, var)
+        if demap_cuda.launch_k4.launches != before + 2:
+            raise AssertionError(f"K4 {name}: the demapper did not launch K4")
+        if not (torch.equal(p0_k, again[0]) and torch.equal(llr_k, again[1])):
+            raise AssertionError(f"K4 {name}: two launches differ")
+        p0_p, llr_p = plain(yr, yi, hr, hi, var)
+        llr_err = float((llr_k - llr_p).abs().max())
+        apart = float(((p0_k > 0.5) != (p0_p > 0.5)).float().mean())
+        bitwise = bool(torch.equal(llr_k, llr_p) and torch.equal(p0_k, p0_p))
+        del p0_p, llr_p
+        if not bitwise:
+            raise AssertionError(f"K4 {name}: not bitwise the plain version (|LLR - plain| up "
+                                 f"to {llr_err:.3g}, decisions apart {apart:.3g})")
+        k4_table = demap_cuda.K4Table.read(tables.points_re, tables.points_im, tables.bit0_mask)
+        outs = torch.empty_like(p0_k), torch.empty_like(llr_k)
+        args = (yr.data_ptr(), yi.data_ptr(), hr.data_ptr(), hi.data_ptr(), nc, nc,
+                var.data_ptr(), k4_table.points_re.ctypes.data,
+                k4_table.points_im.ctypes.data, const.num_points, outs[0].data_ptr(),
+                outs[1].data_ptr(), b, nsym, constants.SMALLEST_PROB,
+                1.0 - constants.SMALLEST_PROB, constants.LLR_CLIP, stream)
+
+        def kernel():
+            if lib.kmldpc_demap(*args) != 0:
+                raise RuntimeError("K4 raw launch failed")
+
+        order = (("plain", lambda: plain(yr, yi, hr, hi, var), 2), ("kernel", kernel, 20),
+                 ("wrapper", lambda: demap(yr, yi, hr, hi, var), 20))
+        runs = {n: [] for n, _, _ in order}
+        for n, fn, reps in (*order, *reversed(order)):
+            runs[n].append(_time_ms(fn, reps))
+        if not (torch.equal(outs[0], p0_k) and torch.equal(outs[1], llr_k)):
+            raise AssertionError(f"K4 {name}: the raw launch differs from the wrapper's")
+        ms = {n: sum(v) / len(v) for n, v in runs.items()}
+        bound, bound_by = k4_bound_ms(b, nc, nsym, const.num_points, ops_rate)
+        kblk = b / 1000
+        log(f"K4 {name} B={b} nc={nc} Nsym={nsym} {snr:g} dB: against the plain demapper "
+            f"max |LLR - plain| {llr_err:.3g}, decisions apart {apart:.3g}, bitwise {bitwise}; "
+            f"two launches bitwise equal")
+        log(f"K4 {name} B={b} nc={nc}: kernel alone {ms['kernel']:.4f} ms = "
+            f"{ms['kernel'] / kblk:.4f} ms/kblk (runs "
+            + ", ".join(f"{v:.4f}" for v in runs["kernel"]) + f"), bound {bound:.4f} ms by "
+            f"{bound_by}, share {bound / ms['kernel']:.4f}; wrapper {ms['wrapper']:.4f} ms; "
+            f"plain {ms['plain']:.3f} ms = {ms['plain'] / kblk:.4f} ms/kblk "
+            f"({ms['plain'] / ms['kernel']:.1f}x the kernel)")
+        out[name] = dict(batch=b, candidates=nc, symbols=nsym, snr_db=snr, max_llr_err=llr_err,
+                         decisions_apart=apart, bitwise_plain=bitwise, ms=ms["kernel"],
+                         wrapper_ms=ms["wrapper"], plain_ms=ms["plain"], bound_ms=bound,
+                         bound_by=bound_by)
+        del p0_k, llr_k, again, outs
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_main_path(card: str, dev: torch.device) -> tuple[int, int, int]:
     import kmldpc_torch.__main__ as cli
     from kmldpc_torch.config import load_config
     from kmldpc_torch.decoder.bp_cuda import launch_k2
     from kmldpc_torch.detect.kmeans_cuda import kmeans_estimate
+    from kmldpc_torch.ops.demap_cuda import launch_k4
     from kmldpc_torch.sim import Simulator
     from kmldpc_torch.utils import SimLogger
 
@@ -768,10 +886,11 @@ def phase_main_path(card: str, dev: torch.device) -> tuple[int, int]:
         with open(cfg_path, "w") as f:
             f.write(text)
         out = io.StringIO()
-        kmeans_estimate.launches = launch_k2.launches = 0
+        kmeans_estimate.launches = launch_k2.launches = launch_k4.launches = 0
         with contextlib.redirect_stdout(out):
             rc = cli.main([cfg_path, "--device", "cuda", "--no-log-file"])
         launches, k2_launches = kmeans_estimate.launches, launch_k2.launches
+        k4_launches = launch_k4.launches
         # the same point warm: three more passes through the harness
         sim = Simulator(load_config(cfg_path), SimLogger(log_dir=None, stdout=False), device=dev)
         warm = [sim.run_snr_point(15.0).blocks_per_s for _ in range(4)][1:]
@@ -779,8 +898,9 @@ def phase_main_path(card: str, dev: torch.device) -> tuple[int, int]:
     sys.stdout.write(text)
     if rc != 0:
         raise AssertionError(f"main path exited {rc}")
-    if launches <= 0 or k2_launches <= 0:
-        raise AssertionError(f"the main path launched K1 {launches} and K2 {k2_launches} times")
+    if launches <= 0 or k2_launches <= 0 or k4_launches <= 0:
+        raise AssertionError(f"the main path launched K1 {launches}, K2 {k2_launches} and K4 "
+                             f"{k4_launches} times")
     done = re.search(
         r"SNR = 15\.000 done: (\d+) blocks in ([\d.]+) s = ([\d.]+) blocks/s, "
         r"counters on (\S+)", text)
@@ -793,9 +913,9 @@ def phase_main_path(card: str, dev: torch.device) -> tuple[int, int]:
         raise AssertionError(f"main path counted {blocks} blocks, expected 4096")
     log(f"main path (15 dB, blind QPSK PEG2304, B=1024): {blocks} blocks, "
         f"{bps:.1f} blocks/s, {bps * INFO_BITS:.0f} info bits/s on {card}; "
-        f"K1 launches {launches}, K2 launches {k2_launches}; warm repeats "
-        + ", ".join(f"{w:.1f}" for w in warm) + " blocks/s")
-    return launches, k2_launches
+        f"K1 launches {launches}, K2 launches {k2_launches}, K4 launches {k4_launches}; warm "
+        "repeats " + ", ".join(f"{w:.1f}" for w in warm) + " blocks/s")
+    return launches, k2_launches, k4_launches
 
 
 def _sweep_point(toml: str, dev: torch.device, snr_db: float, b: int, seed: int):
@@ -2229,11 +2349,13 @@ def main(argv: list[str] | None = None) -> int:
     k1 = phase_k1(dev, ops_rate)
     k2 = phase_k2(dev, ops_rate)
     k3 = phase_k3(dev, ops_rate)
-    launches, k2_launches = phase_main_path(card, dev)
+    k4 = phase_k4(dev, ops_rate)
+    launches, k2_launches, k4_launches = phase_main_path(card, dev)
     from kmldpc_torch.decoder.bp_cuda import launch_k3
-    launch_k3.launches = 0
+    from kmldpc_torch.ops.demap_cuda import launch_k4
+    launch_k3.launches = launch_k4.launches = 0
     counts = phase_parity(dev, smi)
-    k3_launches = launch_k3.launches
+    k3_launches, k4_parity_launches = launch_k3.launches, launch_k4.launches
     fast_launches, counts["fast stack"] = phase_harness(dev)
     phase_layered(dev)
     phase_bf16(dev)
@@ -2297,6 +2419,20 @@ def main(argv: list[str] | None = None) -> int:
         "wrapper_ms": k3["wrapper_ms"],
         "eager_two_phase_ms": k3["eager_two_phase_ms"],
         "by_code": {"5G BG2": k3},
+    }, {
+        "name": "K4 soft demap of every symbol under its gain candidates",
+        "route": "cuda",
+        "source": "kmldpc_torch/csrc/demap.cu",
+        "replaces": None,  # no Pallas kernel: the JAX package demaps with XLA
+        "launches": k4_launches,
+        "launches_parity": k4_parity_launches,  # over the parity phase's sweeps
+        "ms": k4["PEG8064 64QAM"]["ms"],
+        "plain_ms": k4["PEG8064 64QAM"]["plain_ms"],
+        "bound_ms": k4["PEG8064 64QAM"]["bound_ms"],
+        "bound_by": k4["PEG8064 64QAM"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call demaps a constellation
+        "wrapper_ms": k4["PEG8064 64QAM"]["wrapper_ms"],
+        "by_case": k4,
     }]}
     log(f"chip_smoke: {time.monotonic() - t_start:.3f} s")
     log(f"card: {smi}")

@@ -106,4 +106,6 @@ def load_library() -> ctypes.CDLL:
     lib.kmldpc_bp_flood_classes.restype = ctypes.c_int
     lib.kmldpc_bp_flood_classes_words_per_sm.argtypes = [i, i, ip, ip, i, ip, ip, i, ip, ip]
     lib.kmldpc_bp_flood_classes_words_per_sm.restype = ctypes.c_int
+    lib.kmldpc_demap.argtypes = [p, p, p, p, i, i, p, p, p, i, p, p, i, i, f, f, f, p]
+    lib.kmldpc_demap.restype = ctypes.c_int
     return lib

@@ -15,8 +15,9 @@ For each candidate the block is soft-demapped with uniform priors, then:
 The smallest |metric| wins, ties to the first minimum (``torch.argmin``
 returns the first minimal index).  For QPSK with even-degree rows the ĥ
 and -ĥ candidates tie exactly, so the tie rule decides.  The candidates
-are folded into the batch (metric decodes are one [4B] decoder call), and
-the winner's LLRs are reused for the final decode.
+are folded into the batch (the demapper takes each codeword's symbols once
+with its 4 candidates and returns 4B rows; metric decodes are one [4B]
+decoder call), and the winner's LLRs are reused for the final decode.
 """
 
 from __future__ import annotations
@@ -97,12 +98,11 @@ def make_ambiguity_selector(
     nc = 2 if prune_complement else 4
 
     def select(t: DecoderTables | MinsumTables, yr, yi, h4_r, h4_i, var):
-        b, nsym = yr.shape
+        b = yr.shape[0]
         dec_tabs = getattr(t, "base", t)  # MinsumTables carries its DecoderTables
-        yrn = yr[:, None, :].expand(b, nc, nsym).reshape(b * nc, nsym)
-        yin = yi[:, None, :].expand(b, nc, nsym).reshape(b * nc, nsym)
         h4_r, h4_i = h4_r[:, :nc], h4_i[:, :nc]
-        bit_p0, chan_llr = demap(yrn, yin, h4_r.reshape(b * nc), h4_i.reshape(b * nc), var)
+        # row b * nc + c: codeword b under candidate c
+        bit_p0, chan_llr = demap(yr, yi, h4_r, h4_i, var)
         if metric_fn is not None:
             metric = metric_fn(t, bit_p0, chan_llr)
         elif not needs_decode:

@@ -9,10 +9,12 @@ and returns both P(bit=0) and the LLR ``log(p0) - log(p1)``.
 
 The bit marginalisation is a masked sum over the M points in float32
 elementwise arithmetic, not a matmul: a TF32 product on the card would
-keep only about three digits of p0 and p1.  The prior-in demapper
-(``make_prior_demapper``) and the per-segment one
+keep only about three digits of p0 and p1.  ``make_soft_demapper``, the
+chain's, runs that eager version on the CPU and kernel K4
+(``csrc/demap.cu``, wrapper ``ops/demap_cuda.py``) on a card.  The
+prior-in demapper (``make_prior_demapper``) and the per-segment one
 (``make_partition_demapper``) complete the reference's demapping API; the
-simulation chain uses neither.
+simulation chain uses neither, and both stay eager.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from .. import constants
 from ..io.constellation import Constellation
+from .demap_cuda import K4Table, launch_k4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,13 +97,17 @@ def _symbol_probs(tables: ModemTables, yr, yi, hr, hi, var) -> torch.Tensor:
     return p.clamp(constants.SMALLEST_PROB, 1.0 - constants.SMALLEST_PROB)
 
 
-def make_soft_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
-    """Returns ``demap(yr, yi, hr, hi, var) -> (bit_p0, chan_llr)``.
+def make_plain_soft_demapper(
+    tables: ModemTables,
+) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+    """Returns ``demap(yr, yi, hr, hi, var) -> (bit_p0, chan_llr)``, in
+    eager PyTorch: the plain version of kernel K4.
 
-    yr/yi: [B, Nsym]; hr/hi: [B] (one gain per codeword); var: the noise
-    variance 10^(-SNR/10) as a float or 0-d tensor.  Outputs are
-    [B, Nsym*m]: P(bit=0) clipped to [1e-12, 1-1e-12] and the LLR clipped
-    to +-LLR_CLIP.
+    yr/yi: [B, Nsym]; hr/hi: [B] (one gain per codeword) or [B, nc] (nc
+    candidates per codeword, demapped as the rows b * nc + c); var: the
+    noise variance 10^(-SNR/10) as a float or 0-d tensor.  Outputs are
+    [B * nc, Nsym*m]: P(bit=0) clipped to [1e-12, 1-1e-12] and the LLR
+    clipped to +-LLR_CLIP.
     """
     m = tables.bits_per_symbol
     clip_lo = constants.SMALLEST_PROB
@@ -110,6 +117,11 @@ def make_soft_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor,
 
     def demap(yr, yi, hr, hi, var):
         b, nsym = yr.shape
+        if hr.dim() == 2:  # fold the candidates into the batch
+            nc = hr.shape[1]
+            yr = yr[:, None, :].expand(b, nc, nsym).reshape(b * nc, nsym)
+            yi = yi[:, None, :].expand(b, nc, nsym).reshape(b * nc, nsym)
+            hr, hi, b = hr.reshape(b * nc), hi.reshape(b * nc), b * nc
         # the reference clips symbol probabilities before marginalising
         p = _symbol_probs(tables, yr, yi, hr, hi, var)
         # bit marginalisation as masked sums over the M points: [B, Nsym, m]
@@ -126,6 +138,32 @@ def make_soft_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor,
     return demap
 
 
+def k4_engages(*tensors: torch.Tensor) -> bool:
+    """Whether the soft demapper launches kernel K4 on these operands: for
+    any of them off the CPU.  K4 then runs, or raises on anything but
+    float32 tensors on one card."""
+    return any(t.device.type != "cpu" for t in tensors)
+
+
+def make_soft_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
+    """Returns ``demap(yr, yi, hr, hi, var) -> (bit_p0, chan_llr)``, the
+    signature and outputs of :func:`make_plain_soft_demapper`.
+
+    CPU operands run the plain version; CUDA operands launch kernel K4
+    (``ops/demap_cuda.py``) or raise, without a fallback.  The tables are
+    read to the host once, here.
+    """
+    plain = make_plain_soft_demapper(tables)
+    k4_table = K4Table.read(tables.points_re, tables.points_im, tables.bit0_mask)
+
+    def demap(yr, yi, hr, hi, var):
+        if k4_engages(yr, yi, hr, hi):
+            return launch_k4(k4_table, yr, yi, hr, hi, var)
+        return plain(yr, yi, hr, hi, var)
+
+    return demap
+
+
 def make_prior_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor, torch.Tensor]]:
     """Prior-in / extrinsic-out soft demapper, the whole ``Modem::DeMapping``
     (modem.cc:23-79), for iterative demodulation.
@@ -136,7 +174,7 @@ def make_prior_demapper(tables: ModemTables) -> Callable[..., tuple[torch.Tensor
     (modem.cc:34-45), the posterior prior x likelihood normalised
     (:47-57), and the output the bit posterior with the prior divided back
     out (:59-73), clipped.  With uniform priors this is
-    :func:`make_soft_demapper`.  1 - 1e-12 is not a float32, so the prior
+    :func:`make_plain_soft_demapper`.  1 - 1e-12 is not a float32, so the prior
     and its complement are clipped separately.  The log-prior and the bit
     marginals are masked sums over the bits and the points, as in the
     soft demapper.
@@ -175,9 +213,9 @@ def make_partition_demapper(tables: ModemTables, num_parts: int):
     """Soft demapper for one gain per segment (``thetaList``,
     modemlinearsystem.cc:80-90): symbol j of segment p is demapped against
     h_p.  hr/hi: [B, num_parts].  With ``num_parts == 1`` this is
-    :func:`make_soft_demapper`.
+    :func:`make_plain_soft_demapper`.
     """
-    demap = make_soft_demapper(tables)
+    demap = make_plain_soft_demapper(tables)
     m = tables.bits_per_symbol
 
     def demap_parts(yr, yi, hr, hi, var):

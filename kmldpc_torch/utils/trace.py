@@ -15,9 +15,10 @@ as device work.  The spans:
   schedule's phase 1, its unconverged count, each phase-2 tile
   (``decoder/bp_em.py``);
 * ``exit_check``: a decoder loop's early-exit test, a host sync;
-* ``k1``, ``k2``, ``k3``: a launch of kernel K1 (``detect/kmeans_cuda.py``),
-  K2 or K3 (``decoder/bp_cuda.py``): launched through ``ctypes``, their
-  kernels have no operator of their own to be tied to;
+* ``k1``, ``k2``, ``k3``, ``k4``: a launch of kernel K1
+  (``detect/kmeans_cuda.py``), K2 or K3 (``decoder/bp_cuda.py``) or K4
+  (``ops/demap_cuda.py``): launched through ``ctypes``, their kernels have
+  no operator of their own to be tied to;
 * ``harness.build``, ``harness.consume``, ``harness.checkpoint``: the
   ``Simulator``'s set-up, its reads of a launch's counters, its checkpoint
   writes (``sim/montecarlo.py``).
@@ -32,6 +33,9 @@ under the chain label the host is in when it counts (``decode.syncs``,
 * ``syncs``: host syncs of the decode, its exit checks and phase 2's
   unconverged count (K2 and K3 count their none);
 * ``fused_rows``: codewords kernel K2 or K3 decoded;
+* ``demap.fused_rows``: rows kernel K4 demapped, a codeword under one gain
+  candidate each (``metric.demap.fused_rows``: 4B a blind launch, 2B pruned;
+  ``demap.demap.fused_rows``: B with known h);
 * ``kmeans.rows``: rows whose gain the blind estimate ran, counted by the
   chain whichever implementation ran them (K1, the plain loop);
 * ``decode.cw_iters_needed`` and ``harness.launches``: counted by the
