@@ -18,8 +18,10 @@ Phases (any failure raises and exits non-zero):
    phases give it: QPSK / 16QAM Gray / 64QAM Gray at their PEG2304 symbol
    counts (15 dB channel outputs), 64QAM at PEG8064's (sweep 5's front
    end at 17.5 dB) and 16QAM at the 5G BG2 K=960 code's 480 symbols
-   (sweep 4's front end at 14 dB), each also on plain normal draws, B in
-   {1024, 100, 12, 7}, both anchors (rtol 1e-5, atol 1e-6); two launches
+   (sweep 4's front end at 14 dB), 256QAM at PEG8064's (the 256QAM cell's
+   front end at 22.5 dB), each also on plain normal draws, B in
+   {1024, 100, 12, 7} (256QAM also at the cell's 4096), both anchors
+   (rtol 1e-5, atol 1e-6); two launches
    must agree
    bitwise, and so must the early exit with the fixed loop.  At B = 1024,
    CUDA events time the plain version, the wrapper, and raw launches of
@@ -45,8 +47,10 @@ Phases (any failure raises and exits non-zero):
    over phase 5's sweeps;
 3d. K4 against the plain soft demapper on each cell's launch: PEG8064
    64QAM at B = 4096, 5G 16QAM at B = 32768 with 4 candidates and with
-   one, PEG2304 QPSK at B = 16384 (random symbols over Rayleigh gains on
-   the card): bitwise the plain version (K4 sums in the order of PyTorch's
+   one, PEG2304 QPSK at B = 16384, PEG8064 256QAM at B = 4096 with 4
+   candidates and with one, its plain version run on slices of 512 and 2048
+   codewords (random symbols over Rayleigh gains on the card): bitwise the
+   plain version on every slice (K4 sums in the order of PyTorch's
    CUDA reductions), two launches bitwise equal; CUDA events time the
    kernel alone, the wrapper and the plain version, beside the bound (bytes
    at 3.35 TB/s, or one MUFU exponential a point a symbol-candidate); K4's
@@ -182,7 +186,11 @@ K1_CASES = (  # (code, table, symbols a codeword, SNR of the channel rows in dB)
     ("PEG2304regular0.5.txt", "6bits_64QAM_Gray.txt", 384, 15.0),
     ("PEG8064regular0.5.txt", "6bits_64QAM_Gray.txt", 1344, 17.5),  # sweep 5's first point
     ("5GLDPCBG2a3_R12_K960.txt", "4bit_16QAM_Gray.txt", 480, 14.0),  # sweep 4's first point
+    # the first point of linkbench's peg8064-256qam.blind
+    ("PEG8064regular0.5.txt", "8bits_256QAM_Gray.txt", 1008, 22.5),
 )
+# batches K1 is held to the plain loop at beyond K1_BATCHES: the cell's launch
+K1_MORE_BATCHES = {"8bits_256QAM_Gray.txt": (4096,)}
 # sweeps of benchmarks/parity/configs and the C++ reference log each is held to
 SWEEPS = (
     ("sweep1_known_qpsk.toml", "ref_known_qpsk_r5.log"),
@@ -406,7 +414,7 @@ def phase_k1(dev: torch.device, ops_rate: float) -> dict:
                          encoder_active=True)
         estimators = {(anchor, early): make_blind_estimator_cuda(tables, K1_ITERS, anchor, early)
                       for anchor in ("max", "first") for early in (False, True)}
-        for b in K1_BATCHES:
+        for b in (*K1_MORE_BATCHES.get(fname, ()), *K1_BATCHES):
             gen = make_generator(1000 + b, dev)
             _, yr_ch, yi_ch, _, _ = build_frontend_fn(spec, b, dev)(params, gen, var)
             inputs = {
@@ -511,7 +519,8 @@ def phase_k1(dev: torch.device, ops_rate: float) -> dict:
             for rows, ms in occupancy.items())
             + f"; an SM holds {per_sm.value} rows ({per_sm.value / 4:g} warps a scheduler), "
             f"the card {per_sm.value * sms}")
-    log(f"K1 vs plain: {len(K1_CASES)} row shapes x B in {K1_BATCHES} x 2 anchors x 2 "
+    log(f"K1 vs plain: {len(K1_CASES)} row shapes x B in {K1_BATCHES} (and {K1_MORE_BATCHES}) "
+        f"x 2 anchors x 2 "
         f"inputs agree (max |err| {worst:.3g}, rtol {RTOL}, atol {ATOL}); "
         f"two launches bitwise equal; early exit bitwise equal to the fixed loop")
     return dict(max_abs_err=worst, times=times)
@@ -761,13 +770,18 @@ def phase_k3(dev: torch.device, ops_rate: float) -> dict:
     )
 
 
-# K4's cases: (name, table, symbols a codeword, candidates a codeword, B, SNR
-# in dB): each cell's launch, the 5G one both blind and with known h
+# K4's cases: (name, table, symbols a codeword, candidates a codeword, B,
+# codewords a call of the plain version, SNR in dB): each cell's launch, the
+# 5G one both blind and with known h; at 256 points the plain version's
+# [4B, 1008, 256, 8] products are 135 GB at B = 4096, so it runs on slices
+# of the launch's codewords (independent rows), each held to K4's launch
 K4_CASES = (
-    ("PEG8064 64QAM", "6bits_64QAM_Gray.txt", 1344, 4, 4096, 20.0),
-    ("5G 16QAM", "4bit_16QAM_Gray.txt", 480, 4, 32768, 19.0),
-    ("5G 16QAM known", "4bit_16QAM_Gray.txt", 480, 1, 32768, 18.0),
-    ("PEG2304 QPSK", "2bits_QPSK.txt", 1152, 4, 16384, 12.5),
+    ("PEG8064 64QAM", "6bits_64QAM_Gray.txt", 1344, 4, 4096, 4096, 20.0),
+    ("5G 16QAM", "4bit_16QAM_Gray.txt", 480, 4, 32768, 32768, 19.0),
+    ("5G 16QAM known", "4bit_16QAM_Gray.txt", 480, 1, 32768, 32768, 18.0),
+    ("PEG2304 QPSK", "2bits_QPSK.txt", 1152, 4, 16384, 16384, 12.5),
+    ("PEG8064 256QAM", "8bits_256QAM_Gray.txt", 1008, 4, 4096, 512, 27.5),
+    ("PEG8064 256QAM known", "8bits_256QAM_Gray.txt", 1008, 1, 4096, 2048, 27.5),
 )
 # an SM's special-function units take 16 operations a clock against 128
 # float32 lanes: the rate of K4's accurate expf, one MUFU.EX2 each
@@ -785,9 +799,10 @@ def k4_bound_ms(b: int, nc: int, nsym: int, m_points: int, ops_rate: float) -> t
 
 def phase_k4(dev: torch.device, ops_rate: float) -> dict:
     """Kernel K4 against the plain soft demapper on each cell's launch:
-    bitwise equal (the largest |LLR - plain| and the decisions apart are
-    printed), two launches bitwise equal; then CUDA events time the kernel
-    alone, the wrapper and the plain version, beside the bound."""
+    bitwise equal on every slice the plain version runs on (the largest
+    |LLR - plain| and the decisions apart are printed), two launches bitwise
+    equal; then CUDA events time the kernel alone, the wrapper and the plain
+    version on its first slice, beside the bound."""
     from kmldpc_torch import _build, constants
     from kmldpc_torch.io import parse_constellation
     from kmldpc_torch.ops import demap_cuda
@@ -796,7 +811,7 @@ def phase_k4(dev: torch.device, ops_rate: float) -> dict:
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     out = {}
-    for name, table, nsym, nc, b, snr in K4_CASES:
+    for name, table, nsym, nc, b, plain_b, snr in K4_CASES:
         const = parse_constellation(os.path.join(HERE, "assets", table))
         tables = ModemTables.from_constellation(const, dev)
         demap, plain = make_soft_demapper(tables), make_plain_soft_demapper(tables)
@@ -820,14 +835,19 @@ def phase_k4(dev: torch.device, ops_rate: float) -> dict:
             raise AssertionError(f"K4 {name}: the demapper did not launch K4")
         if not (torch.equal(p0_k, again[0]) and torch.equal(llr_k, again[1])):
             raise AssertionError(f"K4 {name}: two launches differ")
-        p0_p, llr_p = plain(yr, yi, hr, hi, var)
-        llr_err = float((llr_k - llr_p).abs().max())
-        apart = float(((p0_k > 0.5) != (p0_p > 0.5)).float().mean())
-        bitwise = bool(torch.equal(llr_k, llr_p) and torch.equal(p0_k, p0_p))
-        del p0_p, llr_p
+        llr_err, apart, bitwise = 0.0, 0.0, True
+        for lo in range(0, b, plain_b):  # codewords lo.., their rows lo * nc..
+            hi_ = lo + plain_b
+            p0_p, llr_p = plain(yr[lo:hi_], yi[lo:hi_], hr[lo:hi_], hi[lo:hi_], var)
+            p0_s, llr_s = p0_k[lo * nc:hi_ * nc], llr_k[lo * nc:hi_ * nc]
+            llr_err = max(llr_err, float((llr_s - llr_p).abs().max()))
+            apart = max(apart, float(((p0_s > 0.5) != (p0_p > 0.5)).float().mean()))
+            bitwise &= bool(torch.equal(llr_s, llr_p) and torch.equal(p0_s, p0_p))
+            del p0_p, llr_p
         if not bitwise:
             raise AssertionError(f"K4 {name}: not bitwise the plain version (|LLR - plain| up "
                                  f"to {llr_err:.3g}, decisions apart {apart:.3g})")
+        slices = b // plain_b
         k4_table = demap_cuda.K4Table.read(tables.points_re, tables.points_im, tables.bit0_mask)
         outs = torch.empty_like(p0_k), torch.empty_like(llr_k)
         args = (yr.data_ptr(), yi.data_ptr(), hr.data_ptr(), hi.data_ptr(), nc, nc,
@@ -840,7 +860,8 @@ def phase_k4(dev: torch.device, ops_rate: float) -> dict:
             if lib.kmldpc_demap(*args) != 0:
                 raise RuntimeError("K4 raw launch failed")
 
-        order = (("plain", lambda: plain(yr, yi, hr, hi, var), 2), ("kernel", kernel, 20),
+        order = (("plain", lambda: plain(yr[:plain_b], yi[:plain_b], hr[:plain_b],
+                                         hi[:plain_b], var), 2), ("kernel", kernel, 20),
                  ("wrapper", lambda: demap(yr, yi, hr, hi, var), 20))
         runs = {n: [] for n, _, _ in order}
         for n, fn, reps in (*order, *reversed(order)):
@@ -851,18 +872,19 @@ def phase_k4(dev: torch.device, ops_rate: float) -> dict:
         bound, bound_by = k4_bound_ms(b, nc, nsym, const.num_points, ops_rate)
         kblk = b / 1000
         log(f"K4 {name} B={b} nc={nc} Nsym={nsym} {snr:g} dB: against the plain demapper "
-            f"max |LLR - plain| {llr_err:.3g}, decisions apart {apart:.3g}, bitwise {bitwise}; "
-            f"two launches bitwise equal")
+            f"on {slices} slice(s) of {plain_b} codewords, max |LLR - plain| {llr_err:.3g}, "
+            f"decisions apart {apart:.3g}, bitwise {bitwise}; two launches bitwise equal")
         log(f"K4 {name} B={b} nc={nc}: kernel alone {ms['kernel']:.4f} ms = "
             f"{ms['kernel'] / kblk:.4f} ms/kblk (runs "
             + ", ".join(f"{v:.4f}" for v in runs["kernel"]) + f"), bound {bound:.4f} ms by "
             f"{bound_by}, share {bound / ms['kernel']:.4f}; wrapper {ms['wrapper']:.4f} ms; "
-            f"plain {ms['plain']:.3f} ms = {ms['plain'] / kblk:.4f} ms/kblk "
-            f"({ms['plain'] / ms['kernel']:.1f}x the kernel)")
+            f"plain on B={plain_b} {ms['plain']:.3f} ms = "
+            f"{ms['plain'] / (plain_b / 1000):.4f} ms/kblk "
+            f"({ms['plain'] * b / plain_b / ms['kernel']:.1f}x the kernel)")
         out[name] = dict(batch=b, candidates=nc, symbols=nsym, snr_db=snr, max_llr_err=llr_err,
-                         decisions_apart=apart, bitwise_plain=bitwise, ms=ms["kernel"],
-                         wrapper_ms=ms["wrapper"], plain_ms=ms["plain"], bound_ms=bound,
-                         bound_by=bound_by)
+                         decisions_apart=apart, bitwise_plain=bitwise, plain_slices=slices,
+                         ms=ms["kernel"], wrapper_ms=ms["wrapper"], plain_ms=ms["plain"],
+                         plain_batch=plain_b, bound_ms=bound, bound_by=bound_by)
         del p0_k, llr_k, again, outs
         torch.cuda.empty_cache()
     return out

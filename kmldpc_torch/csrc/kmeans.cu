@@ -40,7 +40,12 @@
 //   reduce-scatter of shuffles that leaves lane l with the totals of one
 //   cluster.  For 64QAM the slab has 16 columns (lanes l and l + 16 take
 //   turns on column l % 16), summed column by column by the lane that owns
-//   the cluster.  Every order is fixed: the same bits on every launch, no
+//   the cluster.  For 256QAM it has 4 columns, which 8 lanes each take in
+//   turn (l, l + 4, ..., l + 28 on column l % 4): a slab of 16 columns
+//   would be 87 KB a warp, and a warp's slice 100 KB, against the 227 KB a
+//   block may use; at 4 columns a slice of 1,008 symbols takes 41 KB.  An
+//   assignment there is a 16-bit label, since all 256 byte values name a
+//   cluster.  Every order is fixed: the same bits on every launch, no
 //   atomics.
 // * The init's argmax and the anchor's argmax are warp shuffle reductions
 //   (first index on ties); every lane then holds the same gain.
@@ -53,9 +58,10 @@
 // Sums are float64, rounded once to float32, as in the plain version.  The
 // kernel adds in another order than the plain version's reduction, so the
 // two are guaranteed to agree to rounding only.  They agree bitwise on every
-// input tested: float64 holds such a sum exactly while a row's nonzero
-// components lie within 2^18 of one another in magnitude (53 bits, less the
-// 23 below a float32's leading bit and 12 of carries over up to 4096 terms).
+// input tested: float64 holds such a sum exactly, in any order, while a
+// row's nonzero components lie within 2^18 of one another in magnitude (53
+// bits, less the 23 below a float32's leading bit and 12 of carries over up
+// to 4096 terms; a row of 1,008 symbols at 256 points needs 10).
 
 #include <cuda_runtime.h>
 
@@ -72,20 +78,30 @@ constexpr unsigned kFull = 0xffffffffu;
 // H100): M <= kRegPoints in registers, one fused op a cluster a symbol;
 // M <= kLanePoints in the lane's own column of a shared-memory slab, one
 // read-modify-write a symbol (faster than registers for M = 16, slower for
-// M = 4); larger M in a 16-column slab whose columns two lanes share, to
-// fit the shared memory.  Centres stay in registers up to kLanePoints.
+// M = 4); larger M in a slab of fewer columns, which lanes share, to fit
+// the shared memory (slab_cols).  Centres stay in registers up to
+// kLanePoints.
 constexpr int kRegPoints = 4;
 constexpr int kLanePoints = 16;
 // symbols a lane assigns at once (6 ran faster than 4 and 12 on the H100)
 constexpr int kTile = 6;
 constexpr int kCentreChunk = 8;  // shared-memory centres read ahead at once (divides M)
-constexpr int kSlabCols = 16;  // slab: lanes l and l + 16 share column l % 16
-constexpr int kSlabStride = kSlabCols + 1;  // odd row stride: owners' column sums do not conflict
 
-// Row stride of the partials' slab: 32 columns, one a lane, up to
-// kLanePoints; kSlabStride above.
-__host__ __device__ constexpr int slab_stride(int m) { return m <= kLanePoints ? 32 : kSlabStride; }
+// Columns of the partials' slab: one a lane up to kLanePoints; above, 16
+// (lanes l and l + 16 share column l % 16), and 4 above 64 points (lanes
+// l, l + 4, ..., l + 28 share column l % 4).
+__host__ __device__ constexpr int slab_cols(int m) {
+  return m <= kLanePoints ? 32 : m <= 64 ? 16 : 4;
+}
+// Row stride: 32 for a column a lane; else odd, so that the owners' column
+// sums do not conflict.
+__host__ __device__ constexpr int slab_stride(int m) {
+  return m <= kLanePoints ? 32 : slab_cols(m) + 1;
+}
 __host__ __device__ constexpr bool has_slab(int m) { return m > kRegPoints; }
+// Bytes of an assignment: a byte up to 255 points, whose 0xff means none;
+// 16 bits above.
+__host__ __device__ constexpr int label_bytes(int m) { return m < 256 ? 1 : 2; }
 constexpr size_t kMaxSmem = 232448;         // 227 KB a block may use on sm_90
 
 template <int M>
@@ -128,7 +144,7 @@ __host__ __device__ constexpr int row_slots(int nsym) {
 // for a lane holding `slots` symbol slots (32 * slots >= nsym).
 struct WarpSmem {
   size_t points;   // [M] float2: the constellation, for indices known at run time
-  size_t assign;   // [32 * slots] uint8: last assignment (0xff: none)
+  size_t assign;   // [32 * slots] labels (label_bytes(M) each): last assignment (all ones: none)
   size_t centres;  // [M] float2 (M > kLanePoints)
   size_t row;      // [2, 32 * slots] float: the row, zeros past nsym
   size_t slab;     // [M, slab_stride(M)] double re, double im, int count (M > kRegPoints)
@@ -141,7 +157,7 @@ __host__ __device__ inline WarpSmem warp_smem(int m, int slots) {
   w.points = off;
   off = align16(off + 2 * sizeof(float) * m);
   w.assign = off;
-  off = align16(off + 32 * slots);
+  off = align16(off + static_cast<size_t>(label_bytes(m)) * 32 * slots);
   w.centres = off;
   if (m > kLanePoints) off = align16(off + 2 * sizeof(float) * m);
   w.row = off;
@@ -279,6 +295,9 @@ kmeans_kernel(const float* __restrict__ yr_g, const float* __restrict__ yi_g,
   constexpr bool kSlab = M > kLanePoints;  // shared columns, centres in shared memory
   constexpr bool kLaneSlab = M > kRegPoints && !kSlab;
   constexpr int kStride = slab_stride(M);
+  constexpr int kSlabCols = slab_cols(M);
+  using Label = std::conditional_t<label_bytes(M) == 1, uint8_t, uint16_t>;
+  constexpr int kNone = static_cast<Label>(~0u);  // no cluster (padding, or no assignment yet)
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int lane = threadIdx.x & 31;
@@ -291,7 +310,7 @@ kmeans_kernel(const float* __restrict__ yr_g, const float* __restrict__ yi_g,
   const WarpSmem lay = warp_smem(M, nk);
   unsigned char* base = smem + static_cast<size_t>(warp) * lay.total;
   float2* s_pts = reinterpret_cast<float2*>(base + lay.points);
-  uint8_t* s_assign = base + lay.assign;
+  Label* s_assign = reinterpret_cast<Label*>(base + lay.assign);
   float2* s_cent = reinterpret_cast<float2*>(base + lay.centres);
   float* s_yr = reinterpret_cast<float*>(base + lay.row);
   float* s_yi = s_yr + 32 * nk;
@@ -324,7 +343,7 @@ kmeans_kernel(const float* __restrict__ yr_g, const float* __restrict__ yi_g,
     }
     s_yr[s] = a;
     s_yi[s] = b;
-    s_assign[s] = 0xff;  // no assignment yet
+    s_assign[s] = kNone;  // no assignment yet
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -395,13 +414,13 @@ kmeans_kernel(const float* __restrict__ yr_g, const float* __restrict__ yi_g,
       nearest<M>(a, b, cr, ci, s_cent, mbest);
 #pragma unroll
       for (int k = 0; k < kTile; ++k) {
-        if (lane + 32 * (k0 + k) >= nsym) mbest[k] = 0xff;  // padding: no cluster
+        if (lane + 32 * (k0 + k) >= nsym) mbest[k] = kNone;  // padding: no cluster
       }
       if constexpr (kLaneSlab) {
         // this lane's column of the slab: one read-modify-write a symbol
 #pragma unroll
         for (int k = 0; k < kTile; ++k) {
-          if (mbest[k] != 0xff) {
+          if (mbest[k] != kNone) {
             const int at = mbest[k] * 32 + lane;
             slab_r[at] = __dadd_rn(slab_r[at], static_cast<double>(a[k]));
             slab_i[at] = __dadd_rn(slab_i[at], static_cast<double>(b[k]));
@@ -416,7 +435,7 @@ kmeans_kernel(const float* __restrict__ yr_g, const float* __restrict__ yi_g,
         for (int k = 0; k < kTile; ++k) {
           const int s = lane + 32 * (k0 + k);
           changed |= s_assign[s] != mbest[k];
-          s_assign[s] = static_cast<uint8_t>(mbest[k]);
+          s_assign[s] = static_cast<Label>(mbest[k]);
         }
       }
     }
@@ -464,8 +483,8 @@ kmeans_kernel(const float* __restrict__ yr_g, const float* __restrict__ yi_g,
           for (int k = 0; k < nk; ++k) {
             const int s = lane + 32 * k;
             const int m = s_assign[s];
-            if (m != 0xff) {
-              const int at = m * kSlabStride + col;
+            if (m != kNone) {
+              const int at = m * kStride + col;
               slab_r[at] = __dadd_rn(slab_r[at], static_cast<double>(s_yr[s]));
               slab_i[at] = __dadd_rn(slab_i[at], static_cast<double>(s_yi[s]));
               slab_n[at] += 1;
@@ -487,7 +506,7 @@ kmeans_kernel(const float* __restrict__ yr_g, const float* __restrict__ yi_g,
         int n = 0;
 #pragma unroll 4
         for (int cc = 0; cc < kSlabCols; ++cc) {
-          const int at = m * kSlabStride + cc;
+          const int at = m * kStride + cc;
           sr = __dadd_rn(sr, slab_r[at]);
           si = __dadd_rn(si, slab_i[at]);
           n += slab_n[at];
@@ -620,6 +639,8 @@ extern "C" int kmldpc_kmeans_rows_per_sm(int m, int anchor_first, int nsym, int*
       return static_cast<int>(resident_anchor<16>(first, nsym, rows));
     case 64:
       return static_cast<int>(resident_anchor<64>(first, nsym, rows));
+    case 256:
+      return static_cast<int>(resident_anchor<256>(first, nsym, rows));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -648,6 +669,8 @@ extern "C" int kmldpc_kmeans(const float* yr, const float* yi, float* h4r, float
       return static_cast<int>(launch_anchor<16>(first, a));
     case 64:
       return static_cast<int>(launch_anchor<64>(first, a));
+    case 256:
+      return static_cast<int>(launch_anchor<256>(first, a));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

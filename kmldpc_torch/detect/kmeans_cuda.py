@@ -25,7 +25,7 @@ from ..ops.modem import ModemTables
 from ..utils.trace import span
 from .kmeans import blind_estimate, expand_candidates, init_index
 
-KERNEL_POINTS = (4, 16, 64)  # constellation sizes K1 is instantiated for
+KERNEL_POINTS = (4, 16, 64, 256)  # constellation sizes K1 is instantiated for
 
 
 def _check_rows(yr: torch.Tensor, yi: torch.Tensor) -> None:

@@ -81,7 +81,8 @@ def make_ambiguity_selector(
     metric decoder (default: single-phase flooding sum-product, as the
     reference decodes its metrics).  ``prune_complement`` skips candidates
     2 and 3, which the caller has shown tie 0 and 1 (:func:`complement_closed`),
-    and reports the tied values in their columns.
+    and reports the tied values in their columns.  ``select.candidates``
+    is the gains a codeword is demapped under (2 pruned, else 4).
 
     ``metric_fn(t, bit_p0, chan_llr) -> metric [B_folded]`` replaces the
     whole metric computation over the candidate-folded batch, with the
@@ -123,4 +124,5 @@ def make_ambiguity_selector(
             metrics = torch.cat([metrics, metrics], dim=1)
         return hr, hi, metrics, chan_llr[rows]
 
+    select.candidates = nc
     return select

@@ -1,6 +1,7 @@
 """Wrapper of kernel K4 (``csrc/demap.cu``): the soft demapper with uniform
 priors, every received symbol under each of its codeword's gain candidates,
-in registers.
+in registers (at 256 points in three passes over the points, each forming
+the likelihoods anew).
 
 K4 replaces no Pallas kernel (the JAX package's demapper runs as XLA).  Its
 plain version is ``ops/modem.py::make_plain_soft_demapper``, which the CPU
@@ -27,7 +28,7 @@ from .. import constants
 from .._build import load_library
 from ..utils.trace import count, span
 
-KERNEL_POINTS = (4, 16, 64)  # constellation sizes K4 is instantiated for
+KERNEL_POINTS = (4, 16, 64, 256)  # constellation sizes K4 is instantiated for
 KERNEL_CANDIDATES = (1, 2, 4)  # gain candidates a codeword K4 takes
 
 

@@ -252,20 +252,25 @@ def build_backend_fn(
                     h1_r = torch.stack([hr_true] * 4, dim=1)
                     h1_i = torch.stack([hi_true] * 4, dim=1)
                     _, _, m4, _ = select(sel_tabs, yr, yi, h1_r, h1_i, var)
+                    count("demap.point_evals", yr.numel() * select.candidates * tables.num_points)
                     nan = torch.full((batch, 3), float("nan"), device=yr.device)
                     metrics = torch.cat([m4[:, :1], nan], dim=1)
             else:
                 metrics = torch.zeros((batch, 4), dtype=torch.float32, device=yr.device)
                 with label("demap"):
                     _, chan_llr = demap(yr, yi, hr_true, hi_true, var)
+                    count("demap.point_evals", yr.numel() * tables.num_points)
         else:
             with label("kmeans"):
                 h4_r, h4_i, *diag = estimate(yr, yi)
                 count("rows", yr.shape[0])
+                # the estimate runs its whole budget of passes (no early exit here)
+                count("point_evals", yr.numel() * tables.num_points * spec.kmeans_iters)
             if diag:
                 kmeans_diag = (yr, yi, *diag, h4_r, h4_i, hr_true, hi_true)
             with label("metric"):
                 _, _, metrics, chan_llr = select(sel_tabs, yr, yi, h4_r, h4_i, var)
+                count("demap.point_evals", yr.numel() * select.candidates * tables.num_points)
         if spec.debug_blocks > 0:
             debug = (hr_true, hi_true) if spec.known_h else (hr_true, hi_true, h4_r, h4_i)
         if spec.histogram:

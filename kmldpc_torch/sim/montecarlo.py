@@ -470,15 +470,19 @@ class Simulator:
         """The decode's, the blind estimate's and the metric stage's
         counters since ``before`` (a ``snapshot()``), to the log file only:
         codeword-iterations run and needed, their ratio, host syncs, the
-        rows kernel K2 or K3 decoded and the rows whose gain was estimated."""
+        rows kernel K2 or K3 decoded, the rows whose gain was estimated and
+        the points the estimate and the soft demap evaluated."""
         now = snapshot()
         d = {k: v - before.get(k, 0) for k, v in now.items()}
         run, needed = d.get("decode.cw_iters_run", 0), d.get("decode.cw_iters_needed", 0)
+        demap_evals = sum(v for k, v in d.items() if k.endswith("demap.point_evals"))
         self.log.info(
             f"{what} counters: decode cw_iters_run = {run} cw_iters_needed = {needed} "
             f"needed/run = {needed / run if run else 0.0:.4f} syncs = {d.get('decode.syncs', 0)} "
             f"fused_rows = {d.get('decode.fused_rows', 0)}; "
-            f"kmeans rows = {d.get('kmeans.rows', 0)}; "
+            f"kmeans rows = {d.get('kmeans.rows', 0)} "
+            f"point_evals = {d.get('kmeans.point_evals', 0)}; "
+            f"demap point_evals = {demap_evals}; "
             f"metric cw_iters_run = {d.get('metric.cw_iters_run', 0)} "
             f"syncs = {d.get('metric.syncs', 0)}",
             to_stdout=False,

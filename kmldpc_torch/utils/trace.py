@@ -38,6 +38,13 @@ under the chain label the host is in when it counts (``decode.syncs``,
   ``demap.demap.fused_rows``: B with known h);
 * ``kmeans.rows``: rows whose gain the blind estimate ran, counted by the
   chain whichever implementation ran them (K1, the plain loop);
+* ``kmeans.point_evals``: the estimate's point evaluations, rows x Nsym x
+  M x its budget of assignment passes (20; the chain runs no early exit);
+* ``demap.point_evals``: points the soft demap evaluated, rows x Nsym x M,
+  a row a codeword under one gain, counted by the chain whichever
+  implementation ran them (K4, the plain version) under its label
+  (``metric.demap.point_evals``: 4B rows blind, 2B pruned;
+  ``demap.demap.point_evals``: B with known h);
 * ``decode.cw_iters_needed`` and ``harness.launches``: counted by the
   ``Simulator`` as it consumes a launch, the iterations each codeword
   needed, summed (from the mean it reads anyway), and the launches.

@@ -601,6 +601,60 @@ def test_k1_kernel_counts_under_the_chain_label(assets, cuda):
     trace.reset()
 
 
+@pytest.mark.parametrize("b,nsym", [(1024, 1008), (100, 1008), (7, 100)])
+def test_k1_is_bitwise_the_plain_loop_at_256_points(assets, cuda, b, nsym):
+    """At 256 points K1 keeps 16-bit assignments and a 4-column slab of
+    float64 partials; it gives the plain loop's bits for both anchors, with
+    and without its early exit, on PEG8064's 1,008 symbols a row and a
+    ragged short row."""
+    const = parse_constellation(str(assets / "8bits_256QAM_Gray.txt"))
+    tables = ModemTables.from_constellation(const, cuda)
+    yr, yi = (torch.from_numpy(a).to(cuda) for a in _rows(const, b, nsym, b))
+    for anchor in ("max", "first"):
+        plain = expand_candidates(*blind_estimate(yr, yi, tables, 20, anchor))
+        for early in (False, True):
+            k1 = kmeans_cuda.kmeans_estimate(yr, yi, tables, 20, anchor, early_exit=early)
+            for a, p in zip(k1, plain):
+                assert a.shape == (b, 4) and torch.equal(a, p), (anchor, early)
+
+
+def test_k1_and_k4_count_under_the_chain_labels_at_256_points(assets, cuda):
+    """In a traced blind launch of the PEG8064 256QAM link, as the benchmark
+    reduces it, K1's kernel is device time under ``kmeans`` (span ``k1``)
+    and K4's under ``metric`` (span ``k4``); the chain counts the points the
+    estimate and the demap evaluated."""
+    from torch.autograd.profiler import record_function
+
+    from kmldpc_torch.utils import trace
+    from linkbench.trace import SWEEP_SPAN, _profile, reduce
+
+    code = load_code(str(assets / "PEG8064regular0.5.txt"))
+    const = parse_constellation(str(assets / "8bits_256QAM_Gray.txt"))
+    spec = ChainSpec(code=code, constellation=const, known_h=False, fading=True,
+                     metric_type=False, metric_iter=5, max_iter=50, encoder_active=True)
+    var = torch.tensor(10**-2.75, dtype=torch.float32, device=cuda)
+    params = make_chain_params(code, cuda)
+    front = build_frontend_fn(spec, 128, cuda)(params, make_generator(7, cuda), var)
+    backend = build_backend_fn(spec, 128, cuda)
+    backend(params, *front, var)  # builds and loads the library
+    torch.cuda.synchronize()
+    trace.reset()
+    with _profile() as prof:
+        with record_function(SWEEP_SPAN):
+            backend(params, *front, var)
+            torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    assert {"k1", "k4"} <= {e.name() for e in events}
+    s = reduce(events)
+    k1, k4 = s.kernel_s("kmeans_kernel"), s.kernel_s("demap_kernel")
+    assert k1 > 0 and s.by_label.get("kmeans", 0.0) >= k1
+    assert k4 > 0 and s.by_label.get("metric", 0.0) >= k4
+    counts = trace.snapshot()
+    assert counts["kmeans.point_evals"] == 128 * 1008 * 256 * 20
+    assert counts["metric.demap.point_evals"] == 4 * 128 * 1008 * 256
+    trace.reset()
+
+
 # --- kernel K3: the per-codeword flooding sum-product decode of an irregular code
 
 G5 = "5GLDPCBG2a3_R12_K960.txt"

@@ -27,6 +27,7 @@ from kmldpc_torch.ops import ModemTables, encoder_table, make_encoder, make_mapp
 
 TABLES = [  # (table, symbols per PEG2304 codeword)
     ("2bits_QPSK.txt", 1152), ("4bit_16QAM_Gray.txt", 576), ("6bits_64QAM_Gray.txt", 384),
+    ("8bits_256QAM_Gray.txt", 288),
 ]
 RTOL, ATOL = 1e-5, 1e-6  # tests/test_pallas.py's tolerance
 

@@ -29,10 +29,11 @@ from .test_torch_cuda import llr_float64
 # (table, symbols a codeword, the SNR range of its cells in dB)
 LINKS = [("2bits_QPSK.txt", 1152, (5.0, 20.0)),  # peg2304-qpsk.blind
          ("4bit_16QAM_Gray.txt", 480, (12.0, 24.0)),  # nr-bg2-16qam.known and .blind
-         ("6bits_64QAM_Gray.txt", 1344, (17.5, 25.0))]  # peg8064-64qam.blind
+         ("6bits_64QAM_Gray.txt", 1344, (17.5, 25.0)),  # peg8064-64qam.blind
+         ("8bits_256QAM_Gray.txt", 1008, (22.5, 32.5))]  # peg8064-256qam.blind
 LLR_MARGIN = 1.10  # tests/test_torch_rounding.py's margin on |LLR - float64|
 SHIPPED = ["2bits_QPSK.txt", "2bits_4PSK.txt", "4bit_16QAM_Gray.txt", "4bit_16QAM_phi1.txt",
-           "4bit_16QAM_phi2.txt", "6bits_64QAM_Gray.txt"]
+           "4bit_16QAM_phi2.txt", "6bits_64QAM_Gray.txt", "8bits_256QAM_Gray.txt"]
 
 
 @pytest.fixture(autouse=True)
@@ -122,7 +123,7 @@ def test_k4_wrapper_raises_before_loading_the_library(assets, monkeypatch, case,
 
 
 @pytest.mark.parametrize("nc", [1, 2, 4])
-@pytest.mark.parametrize("fname,nsym,snrs", LINKS, ids=["qpsk", "16qam", "64qam"])
+@pytest.mark.parametrize("fname,nsym,snrs", LINKS, ids=["qpsk", "16qam", "64qam", "256qam"])
 def test_plain_folds_candidates_bitwise(assets, fname, nsym, snrs, nc):
     """The plain version on [B, Nsym] symbols with [B, nc] gains gives,
     bitwise, the rows of the candidate-expanded call the selector made
@@ -202,7 +203,7 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [7, 133])
 @pytest.mark.parametrize("nc", [1, 2, 4])
-@pytest.mark.parametrize("fname,nsym,snrs", LINKS, ids=["qpsk", "16qam", "64qam"])
+@pytest.mark.parametrize("fname,nsym,snrs", LINKS, ids=["qpsk", "16qam", "64qam", "256qam"])
 def test_k4_against_plain_and_float64(assets, cuda, fname, nsym, snrs, nc, b):
     """K4 and the plain version on the card, each against a float64 demap,
     at both ends of the cells' SNR range: K4's worst and mean |LLR error|
@@ -234,7 +235,7 @@ def test_k4_against_plain_and_float64(assets, cuda, fname, nsym, snrs, nc, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("nc", [1, 2, 4])
-@pytest.mark.parametrize("fname,nsym,snrs", LINKS, ids=["qpsk", "16qam", "64qam"])
+@pytest.mark.parametrize("fname,nsym,snrs", LINKS, ids=["qpsk", "16qam", "64qam", "256qam"])
 def test_k4_is_bitwise_the_plain_version_on_card(assets, cuda, fname, nsym, snrs, nc):
     """K4 sums in the order PyTorch's CUDA reductions take over the plain
     version's tensors, and rounds every other step as it does, so on the
@@ -299,3 +300,30 @@ def test_k4_refuses_an_unsupported_table_on_card(cuda):
     h = torch.ones((2, 4), device=cuda)
     with pytest.raises(ValueError, match="8-point"):
         make_soft_demapper(tables)(y, y, h, h, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nc", [1, 2, 4])
+@pytest.mark.parametrize("b,nsym", [(1, 1008), (133, 1008), (133, 100)])
+def test_k4_is_bitwise_the_plain_version_at_256_points(assets, cuda, b, nsym, nc):
+    """At 256 points K4 makes three passes over the points and sums in the
+    orders PyTorch's CUDA reductions take over the plain version's 256-point
+    tensors, which differ from those at 4-64 points: the two give the same
+    bits on B and Nsym that fill no whole block of K4, at both ends of the
+    256QAM cell's grid."""
+    const = parse_constellation(str(assets / "8bits_256QAM_Gray.txt"))
+    tables = ModemTables.from_constellation(const, cuda)
+    k4, plain = make_soft_demapper(tables), make_plain_soft_demapper(tables)
+    for i, snr in enumerate((22.5, 32.5)):
+        host = _link(const, b, nsym, nc, snr, 31 * b + nc + i)
+        args = [torch.from_numpy(a).to(cuda) for a in host[:4]]
+        if nc == 1:
+            args[2], args[3] = args[2][:, 0], args[3][:, 0]
+        var = torch.tensor(host[4], device=cuda)
+        before = demap_cuda.launch_k4.launches
+        got, want = k4(*args, var), plain(*args, var)
+        assert demap_cuda.launch_k4.launches == before + 1
+        for name, a, w in zip(("bit_p0", "chan_llr"), got, want):
+            assert a.shape == (b * nc, nsym * 8)
+            apart = int((a != w).sum())
+            assert apart == 0, (snr, name, apart, float((a - w).abs().max()))

@@ -37,7 +37,8 @@ from kmldpc_torch.ops import (
 
 from .oracle import demap_oracle, demap_prior_oracle
 
-TABLES = ["2bits_QPSK.txt", "4bit_16QAM_Gray.txt", "6bits_64QAM_Gray.txt"]
+TABLES = ["2bits_QPSK.txt", "4bit_16QAM_Gray.txt", "6bits_64QAM_Gray.txt",
+          "8bits_256QAM_Gray.txt"]
 
 
 @pytest.fixture(autouse=True)

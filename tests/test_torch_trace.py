@@ -210,7 +210,8 @@ def test_simulator_logs_counters_to_the_file_only(assets, tmp_path, capsys, monk
     assert "cw_iters" not in out
     found = re.findall(r"\] (.*) counters: decode cw_iters_run = (\d+) cw_iters_needed = (\d+) "
                        r"needed/run = ([0-9.]+) syncs = (\d+) fused_rows = (\d+); "
-                       r"kmeans rows = (\d+); metric cw_iters_run = (\d+) syncs = (\d+)", log)
+                       r"kmeans rows = (\d+) point_evals = (\d+); demap point_evals = (\d+); "
+                       r"metric cw_iters_run = (\d+) syncs = (\d+)", log)
     whats = [f[0] for f in found]
     assert whats == (["SNR = 10.000", "SNR = 15.000"] if not snr_fold
                      else ["SNR-fold sweep of 2 points"])
@@ -226,7 +227,11 @@ def test_simulator_logs_counters_to_the_file_only(assets, tmp_path, capsys, monk
     assert all(int(f[5]) == 0 for f in found)  # K2 decodes no row on the CPU
     # the blind estimate ran every row of the 4 launches, once
     assert sum(int(f[6]) for f in found) == counts["kmeans.rows"] == 16
-    metric_run = sum(int(f[7]) for f in found)
+    # 16QAM on PEG2304: 576 symbols a row, 16 points; 20 assignment passes,
+    # and each row demapped under 4 candidates
+    assert sum(int(f[7]) for f in found) == counts["kmeans.point_evals"] == 16 * 576 * 16 * 20
+    assert sum(int(f[8]) for f in found) == counts["metric.demap.point_evals"] == 16 * 4 * 576 * 16
+    metric_run = sum(int(f[9]) for f in found)
     assert 4 * 16 * 4 <= metric_run <= 4 * 16 * 5
     (tmp_path / "ckpt.json").unlink()
     monkeypatch.setattr(Simulator, "_log_counters", lambda *a: None)
